@@ -1,7 +1,8 @@
 """Inputs and timers shared by the card tests (tests/test_torch_cuda.py)
 and chip_smoke.py, kept beside them and out of the spasm_tpu_torch
 package: random substitution waves for kernel B1, rank-deficient
-sub-panels for the row sweeps B2/B3, and CUDA-event timing.
+sub-panels for the row sweeps B2/B3, column panels for the panel kernel
+B4, and CUDA-event timing.
 
 Inputs are made with numpy from an explicit Generator, so a kernel and its
 plain version see the same numbers on any device.
@@ -50,6 +51,19 @@ def deficient_panel(rng: np.random.Generator, nb: int, M: int, r: int,
     X[:, :empty_cols] = 0
     X[::7] = 0
     return X.astype(np.int32)
+
+
+def panel_block(rng: np.random.Generator, n: int, p: int):
+    """(n, 192) balanced int32 block whose columns 64..127 are the panel
+    of kernel B4 (read through the block's row stride): 60 % zeros, every
+    9th row zero, panel column 7 a copy of column 2 and column 40 empty;
+    and an (n,) bool mask with ~10 % of the rows already pivotal."""
+    X = balanced(rng, (n, 192), p)
+    X[rng.random((n, 192)) < 0.6] = 0
+    X[:, 64 + 7] = X[:, 64 + 2]
+    X[:, 64 + 40] = 0
+    X[::9] = 0
+    return X.astype(np.int32), rng.random(n) < 0.1
 
 
 def cuda_ms(fn: Callable[[], object], reps: int) -> float:

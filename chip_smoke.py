@@ -5,19 +5,31 @@
 
 Phases, each fatal on failure (no failure is caught):
   1. device: requires torch.cuda; prints the card's name and power limit;
-  2. build: compiles the CUDA kernels (csrc/*.cu, nvcc) and the host pivot
-     library (g++) from this checkout, and prints the seconds taken;
-  3. kernels: B1 (substitution), B2 and B3 (row sweeps) against their plain
-     torch versions on the card at the rank path's shapes, bit-equal, with
-     both times; matmul_digits on the card against the CPU;
-  4. main path, with the launch counts zeroed first: one tests/Matrix
+  2. build: compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
+     at once) and the host native library (g++) from this checkout, and
+     prints the seconds taken;
+  3. kernels: B1 (substitution), B2 and B3 (row sweeps) and B4 (the panel
+     kernel, RREF and LU mode) against their plain torch versions on the
+     card at the main paths' shapes, bit-equal, with both times and each
+     kernel's bound (bytes over 3.35 TB/s or operations over 67 T/s,
+     whichever is larger); matmul_digits on the card against the CPU;
+  4. the rank path, with the launch counts zeroed first: one tests/Matrix
      fixture (M = 2048, so B2 sweeps), bit-equal to the port's own CPU run;
      the `rank` CLI on mk12.b4; mk12.b4 and mk13.b5 (matching-complex
      boundary maps, oriented as the rank tool does) through `echelonize`
      on the card, cold and warm, held to their published ranks; the
-     finisher's stage profile of a third mk13.b5 run.  Every kernel must
+     finisher's stage profile of a third mk13.b5 run.  B1, B2 and B3 must
      have launched in this phase;
-  5. a JSON line of the kernels, then the last line
+  5. the dense finishers, with the launch counts zeroed again:
+     trefethen_2000 with default options (round 0 leaves a dense Schur
+     complement: finish_dense, RREF) and its complete PLUQ, each bit-equal
+     to the port's own CPU run, the PLUQ verified; PLUQ16k, the complete
+     PLUQ of synthetic_sparse(16000, 16000, 8, 42013) (bench.py config 4),
+     cold and warm, rank 15997, with the finish_dense stage clocks of a
+     third run, then L and U materialized (timed apart) and verified
+     (factorization_verify); the same matrix's rank through finish_dense
+     (device_dense_width=0).  B4 must have launched in both modes;
+  6. a JSON line of the kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX or of the JAX package `spasm_tpu`.
@@ -37,6 +49,12 @@ import torch
 HERE = pathlib.Path(__file__).resolve().parent
 P = 42013                                   # the tools' default modulus
 MK = {"mk12.b4": (12, 4, 39535), "mk13.b5": (13, 5, 134211)}
+PLUQ16K_RANK = 15997                        # BENCH_r05.json pluq16k_rank
+# bounds: device memory rate, and the float32 rate outside the tensor
+# cores taken for the kernels' int32 CUDA-core work (no int32 peak is
+# listed for the card), NVIDIA H100 SXM
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -70,24 +88,68 @@ def build_phase() -> None:
         if "entry function" in line:
             kernel = next(k for k in ("subst_wave", "sweep_find",
                                       "sweep_update", "tile_pass",
-                                      "tile_compose") if k in line)
+                                      "tile_compose", "panel_kernel")
+                          if k in line)
         elif kernel and "Used" in line:
             log(f"  {kernel}: {line.split(':', 1)[1].strip()}")
 
 
-def _record(name, src, replaces, got, want, ms=None, plain_ms=None):
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+def _max_err(got, want) -> int:
+    if got.shape != want.shape:
+        sys.exit(f"chip_smoke: shapes {tuple(got.shape)} != "
+                 f"{tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def _record(name, src, replaces, got, want, nbytes, ops):
+    """Holds got against want (tolerance 0) and starts the kernel's JSON
+    record, with its bound from this input's bytes and operations."""
+    err = max(_max_err(g, w) for g, w in zip(got, want))
     if err:
         sys.exit(f"chip_smoke: {name} disagrees with its plain version "
                  f"(max abs err {err})")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": None, "plain_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}     # no single PyTorch call computes these
+
+
+def _b4_ops(P0, is_piv, rref: bool) -> int:
+    """Operations B4 needs on this panel, 3 per updated element (two
+    products and a difference): the discovery steps' updates of the
+    available rows with a nonzero in the step's column (counted on this
+    data), the 64 steps on [W | I], the diagonal scaling and, in LU mode,
+    the unit-upper inverse's products and sums."""
+    from spasm_tpu_torch.dense.elim import _mulsub
+    Pw, piv = P0.clone(), is_piv.clone()
+    ops = 0
+    for t in range(64):
+        col = Pw[:, t]
+        avail = ~piv & (col != 0)
+        if not bool(avail.any()):
+            continue
+        r = int(torch.argmax(avail.to(torch.int32)))
+        g = torch.where(avail, col, 0)
+        g[r] = 0
+        ops += 3 * int((g != 0).sum()) * (63 - t)
+        Pw = _mulsub(col[r], Pw, g[:, None], Pw[r][None, :], P)
+        piv[r] = True
+    ops += sum(3 * (63 if rref else 63 - t) * 128 for t in range(64))
+    ops += 64 * 64 * (1 if rref else 2)
+    if not rref:
+        ops += sum(2 * (63 - i) * 64 for i in range(64))
+    return ops
 
 
 def kernel_phase() -> dict:
-    from chip_checks import cuda_ms, deficient_panel, random_waves
+    from chip_checks import cuda_ms, deficient_panel, panel_block, random_waves
     from spasm_tpu_torch.dense.modp import matmul_digits
+    from spasm_tpu_torch.dense.panel import _panel_plain, panel_pivots
     from spasm_tpu_torch.dense.rowrref import (_row_sweep_plain,
                                                _row_sweep_tiles_plain,
                                                row_sweep, row_sweep_tiles)
@@ -105,15 +167,21 @@ def kernel_phase() -> dict:
     got, want = R0.clone(), R0.clone()
     subst_waves(got, *waves, P)
     _subst_waves_plain(want, *waves, P)
+    # R read and written once, the wave arrays read; a product and a sum
+    # per reference and column
+    nbytes = 2 * R0.numel() * R0.element_size() + sum(a.nbytes
+                                                      for a in waves)
     rec = _record("B1 subst_wave", "spasm_tpu_torch/csrc/subst.cu",
-                  "spasm_tpu/dense/subst_pallas.py:68", got, want)
+                  "spasm_tpu/dense/subst_pallas.py:68", [got], [want],
+                  nbytes, 2 * waves[2].size * M)
     # the sweep runs in place: each timed call re-substitutes `work`
     work = R0.clone()
     ms = cuda_ms(lambda: subst_waves(work, *waves, P), 3)
     plain_ms = cuda_ms(lambda: _subst_waves_plain(work, *waves, P), 1)
     out["B1"] = dict(rec, ms=ms, plain_ms=plain_ms)
     log(f"B1 ({n} rows, 300 waves, M={M}): kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bit-equal")
+        f"plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), bit-equal")
     del R0, got, want, work
 
     def sweeps(name, kern, plain, M, empty, replaces):
@@ -121,16 +189,18 @@ def kernel_phase() -> dict:
                                               empty_cols=empty)).to(dev)
         got, want = P0.clone(), P0.clone()
         piv, piv_w = kern(got, P), plain(want, P)
-        if not torch.equal(piv, piv_w):
-            sys.exit(f"chip_smoke: {name} pivots disagree at M={M}")
+        # the panel read and written once; each pivot's Jordan step
+        # updates every element (two products and a difference)
+        npiv = int((piv_w >= 0).sum())
         rec = _record(name, "spasm_tpu_torch/csrc/row_sweep.cu", replaces,
-                      got, want)
+                      [got, piv], [want, piv_w], 2 * P0.numel() * 4 + 64 * 4,
+                      3 * npiv * 64 * M)
         work = P0.clone()
         ms = cuda_ms(lambda: kern(work.copy_(P0), P), 10)
         plain_ms = cuda_ms(lambda: plain(work.copy_(P0), P), 2)
         log(f"{name} (64, {M}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-            f"(each with one panel copy), {int((piv >= 0).sum())} pivots, "
-            f"bit-equal")
+            f"(each with one panel copy), bound {rec['bound_ms']:.5f} ms "
+            f"({rec['bound_by']}), {npiv} pivots, bit-equal")
         return dict(rec, ms=ms, plain_ms=plain_ms)
 
     out["B2"] = sweeps("B2 sweep_find+sweep_update", row_sweep,
@@ -141,6 +211,31 @@ def kernel_phase() -> dict:
     out["B3"] = sweeps("B3 tile_pass+tile_compose", row_sweep_tiles,
                        _row_sweep_tiles_plain, 22528, 3000,
                        "spasm_tpu/dense/rowrref.py:126")
+
+    # B4 at the dense finishers' panel heights: 4608 (PLUQ16k blocks, LU)
+    # and 1024 (trefethen_2000 blocks, RREF and LU)
+    for n in (1024, 4608):
+        X, is_piv = panel_block(rng, n, P)
+        Xd = torch.from_numpy(X).to(dev)
+        P0 = Xd[:, 64:128]                 # read through the row stride
+        ip = torch.from_numpy(is_piv).to(dev)
+        for rref in (True, False):
+            mode = "RREF" if rref else "LU"
+            got = panel_pivots(P0, ip, P, 64, rref)
+            want = _panel_plain(P0, ip, P, 64, rref)
+            nbytes = (P0.numel() * 4 + 2 * n + 64 * 5
+                      + 64 * 64 * 4 * (1 if rref else 2))
+            rec = _record("B4 panel_kernel", "spasm_tpu_torch/csrc/panel.cu",
+                          "spasm_tpu/dense/sweep_pallas.py:77", list(got),
+                          list(want), nbytes, _b4_ops(P0, ip, rref))
+            ms = cuda_ms(lambda: panel_pivots(P0, ip, P, 64, rref), 20)
+            plain_ms = cuda_ms(lambda: _panel_plain(P0, ip, P, 64, rref), 2)
+            log(f"B4 ({n}, 64) {mode}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.5f} ms "
+                f"({rec['bound_by']}), {int(got[1].sum())} pivots, "
+                f"bit-equal")
+            if n == 4608 and not rref:     # the PLUQ16k shape
+                out["B4"] = dict(rec, ms=ms, plain_ms=plain_ms)
 
     A = torch.from_numpy(rng.integers(-(P // 2), P // 2 + 1, (512, 4096),
                                       dtype=np.int32))
@@ -157,30 +252,43 @@ def kernel_phase() -> dict:
     return out
 
 
-def _same_U(a, b) -> bool:
-    Ua, Ub = a.U, b.U
-    return (np.array_equal(a.qinv, b.qinv)
+def _same_csr(Ua, Ub) -> bool:
+    return ((Ua.n, Ua.m) == (Ub.n, Ub.m)
             and np.array_equal(Ua.indptr, Ub.indptr)
             and np.array_equal(Ua.indices[:Ua.nnz], Ub.indices[:Ub.nnz])
             and np.array_equal(Ua.data[:Ua.nnz], Ub.data[:Ub.nnz]))
 
 
-def _timed_rank(A, want: int, label: str):
-    from spasm_tpu_torch import echelonize
+def _same_U(a, b) -> bool:
+    return np.array_equal(a.qinv, b.qinv) and _same_csr(a.U, b.U)
+
+
+def _timed_rank(A, want: int, label: str, opts=None):
+    from spasm_tpu_torch import _cuda, echelonize
+    before = dict(_cuda.launches)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    fact = echelonize(A, device="cuda")
+    fact = echelonize(A, opts, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if fact.r != want:
         sys.exit(f"chip_smoke: {label} rank {fact.r} != {want}")
-    log(f"{label}: rank {fact.r} (published {want}), wall {wall:.3f} s, "
-        f"peak device memory {peak:.2f} GiB")
+    runs = {k: v - before[k] for k, v in _cuda.launches.items()
+            if v != before[k]}
+    log(f"{label}: rank {fact.r} (want {want}), wall {wall:.3f} s, "
+        f"peak device memory {peak:.2f} GiB, launches {runs}")
     return fact
 
 
-def main_path_phase() -> dict:
+def _launched(counts: dict, keys, what: str) -> None:
+    log(f"{what} launches: {counts}")
+    missing = [k for k in keys if counts[k] == 0]
+    if missing:
+        sys.exit(f"chip_smoke: kernels never launched on {what}: {missing}")
+
+
+def rank_path_phase() -> dict:
     from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
     from spasm_tpu_torch.gen import matching_complex_boundary
     fixture = HERE / "tests" / "Matrix" / "trefethen_500.sms"
@@ -228,11 +336,70 @@ def main_path_phase() -> dict:
     log("mk13.b5 finisher stages (s): " + json.dumps(
         {k: round(v, 4) for k, v in fact.profile.items()}))
     counts = dict(_cuda.launches)
-    log(f"main-path launches: {counts}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        sys.exit(f"chip_smoke: kernels never launched on the main path: "
-                 f"{missing}")
+    _launched(counts, ("B1", "B2", "B3"), "the rank path")
+    return counts
+
+
+def dense_finisher_phase() -> dict:
+    from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
+    from spasm_tpu_torch.certificate import factorization_verify
+    from spasm_tpu_torch.gen import synthetic_sparse
+    A, _ = sio.load_csr(HERE / "tests" / "Matrix" / "trefethen_2000.sms", P)
+    pluq = EchelonizeOptions(complete=True)
+    ref_rank = echelonize(A, device="cpu")
+    ref_pluq = echelonize(A, pluq, device="cpu")
+    t0 = time.time()
+    A16 = synthetic_sparse(16000, 16000, 8, P)
+    log(f"PLUQ16k: {A16.n} x {A16.m}, {A16.nnz} nnz, generated in "
+        f"{time.time() - t0:.1f} s")
+
+    _cuda.reset_launches()
+    fact = _timed_rank(A, 2000, "trefethen_2000 rank (finish_dense, RREF)")
+    if not _same_U(fact, ref_rank):
+        sys.exit("chip_smoke: trefethen_2000 rank on the card differs from "
+                 "the CPU run")
+    log(f"  qinv and U bit-equal to the CPU run; B4 RREF launches "
+        f"{_cuda.launches['B4 rref']}")
+    fact = _timed_rank(A, 2000, "trefethen_2000 complete PLUQ", pluq)
+    if not (_same_U(fact, ref_pluq) and np.array_equal(fact.p, ref_pluq.p)
+            and _same_csr(fact.L, ref_pluq.L)
+            and factorization_verify(A, fact, 42)):
+        sys.exit("chip_smoke: trefethen_2000 PLUQ differs from the CPU run "
+                 "or fails factorization_verify")
+    log(f"  L, U and p bit-equal to the CPU run, factorization_verify "
+        f"true; B4 LU launches {_cuda.launches['B4 lu']}")
+
+    lu0 = _cuda.launches["B4 lu"]
+    for run in ("cold", "warm"):
+        fact = _timed_rank(A16, PLUQ16K_RANK, f"PLUQ16k complete PLUQ {run}",
+                           pluq)
+        del fact
+    os.environ["SPASM_PROFILE_FINISH"] = "1"
+    fact = _timed_rank(A16, PLUQ16K_RANK, "PLUQ16k profiled (stage clocks "
+                       "synchronize)", pluq)
+    del os.environ["SPASM_PROFILE_FINISH"]
+    log("PLUQ16k finish_dense stages (s): " + json.dumps(
+        {k: round(v, 4) for k, v in fact.profile.items()}))
+    lu16 = _cuda.launches["B4 lu"] - lu0
+    if lu16 == 0:
+        sys.exit("chip_smoke: B4 (LU) never launched on PLUQ16k")
+    log(f"  B4 LU launches over the three PLUQ16k runs: {lu16}")
+    t0 = time.time()
+    U, L = fact.U, fact.L
+    t_mat = time.time() - t0
+    t0 = time.time()
+    ok = factorization_verify(A16, fact, 42)
+    log(f"PLUQ16k factors on the host: U {U.nnz} nnz, L {L.nnz} nnz, "
+        f"materialized in {t_mat:.1f} s; factorization_verify {ok} "
+        f"({time.time() - t0:.1f} s)")
+    if not ok:
+        sys.exit("chip_smoke: PLUQ16k fails factorization_verify")
+    del fact, U, L
+    _timed_rank(A16, PLUQ16K_RANK, "PLUQ16k rank (finish_dense, RREF, "
+                "device_dense_width=0)",
+                EchelonizeOptions(device_dense_width=0))
+    counts = dict(_cuda.launches)
+    _launched(counts, ("B4 rref", "B4 lu"), "the dense finishers")
     return counts
 
 
@@ -242,13 +409,15 @@ def main() -> int:
     build_phase()
     logging.getLogger("spasm_tpu_torch").setLevel(logging.WARNING)
     kernels = kernel_phase()
-    counts = main_path_phase()
+    counts = rank_path_phase()
+    counts4 = dense_finisher_phase()
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "spasm_tpu"))
     if leaked:
         sys.exit(f"chip_smoke: JAX modules were imported: {leaked[:5]}")
-    for k, rec in kernels.items():
-        rec["launches"] = counts[k]
+    for k in ("B1", "B2", "B3"):
+        kernels[k]["launches"] = counts[k]
+    kernels["B4"]["launches"] = counts4["B4 rref"] + counts4["B4 lu"]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

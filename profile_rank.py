@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's rank path on one NVIDIA card.
+"""Device-time breakdown of the port's main paths on one NVIDIA card.
 
-    python3 profile_rank.py
+    python3 profile_rank.py [mk12.b4] [mk13.b5] [pluq16k]   (default: all)
 
-For mk12.b4 and mk13.b5 (the instances of chip_smoke.py, oriented as the
-rank tool orients them): one warm-up call of `echelonize(A,
-device="cuda")`, three unprofiled warm calls (their walls show the
-spread), then one call under torch.profiler.  From that profiled call
-alone it prints:
+Cases (the instances of chip_smoke.py): mk12.b4 and mk13.b5, ranked as
+the rank tool orients them (the rank path's device finisher), and
+pluq16k, the complete PLUQ of synthetic_sparse(16000, 16000, 8, 42013)
+(bench.py config 4; finish_dense in L mode).  For each: one warm-up call
+of `echelonize(A, opts, device="cuda")`, three unprofiled warm calls
+(their walls show the spread), then one call under torch.profiler.  From
+that profiled call alone it prints:
   - its wall (host clock around the call and a device synchronize);
   - device busy time: the union of the intervals of the device events
     (kernels, copies, fills), user annotations (the `spasm/...`
@@ -15,7 +17,10 @@ alone it prints:
     left out;
   - the idle share 1 - busy / wall of that call (the profiler's own host
     overhead makes it an upper bound);
-  - busy time by kernel group and the heaviest kernels.
+  - busy time by kernel group and the heaviest kernels;
+  - the device span of each `spasm/...` range (first kernel start to
+    last kernel end of the work launched inside it; nested ranges are
+    counted in each), which places the groups in the engine's stages.
 
 Imports nothing of JAX.
 """
@@ -28,9 +33,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-MK = {"mk12.b4": (12, 4, 39535), "mk13.b5": (13, 5, 134211)}
 REPS = 3
 GROUPS = (("B1 subst_wave", ("subst_wave",)),
+          ("B4 panel_kernel", ("panel_kernel",)),
           ("B2 sweep_find+sweep_update", ("sweep_find", "sweep_update")),
           ("B3 tile_pass+tile_compose", ("tile_pass", "tile_compose")),
           ("int8 GEMM (torch._int_mm)", ("gemm", "cutlass", "igemm")),
@@ -59,9 +64,25 @@ def union_us(intervals) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def rank_wall(echelonize, A, want: int) -> float:
+def case(tag: str):
+    """(A, opts, rank) of a case."""
+    from spasm_tpu_torch import EchelonizeOptions
+    from spasm_tpu_torch.gen import matching_complex_boundary, \
+        synthetic_sparse
+    if tag == "pluq16k":
+        return (synthetic_sparse(16000, 16000, 8, 42013),
+                EchelonizeOptions(complete=True), 15997)
+    nn, j, want = {"mk12.b4": (12, 4, 39535),
+                   "mk13.b5": (13, 5, 134211)}[tag]
+    A = matching_complex_boundary(nn, j)
+    if A.n < A.m:                            # the rank tool's orientation
+        A = A.transpose()
+    return A, None, want
+
+
+def wall_of(echelonize, A, opts, want: int) -> float:
     t0 = time.time()
-    fact = echelonize(A, device="cuda")
+    fact = echelonize(A, opts, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
     if fact.r != want:
@@ -73,25 +94,30 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("profile_rank: torch.cuda.is_available() is False")
     from spasm_tpu_torch import _cuda, echelonize
-    from spasm_tpu_torch.gen import matching_complex_boundary
     logging.getLogger("spasm_tpu_torch").setLevel(logging.WARNING)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True,
                          timeout=60).stdout.strip(), flush=True)
     _cuda.lib()
-    for tag, (nn, j, want) in MK.items():
-        A = matching_complex_boundary(nn, j)
-        if A.n < A.m:                        # the rank tool's orientation
-            A = A.transpose()
-        rank_wall(echelonize, A, want)       # warm-up
-        walls = [rank_wall(echelonize, A, want) for _ in range(REPS)]
+    for tag in sys.argv[1:] or ["mk12.b4", "mk13.b5", "pluq16k"]:
+        A, opts, want = case(tag)
+        wall_of(echelonize, A, opts, want)         # warm-up
+        walls = [wall_of(echelonize, A, opts, want) for _ in range(REPS)]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall = rank_wall(echelonize, A, want)
-        dev = [e for e in prof.events()
+            wall = wall_of(echelonize, A, opts, want)
+        events = prof.events()
+        dev = [e for e in events
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation]
+        spans = {}
+        for e in events:
+            if (e.device_type == DeviceType.CUDA and e.is_user_annotation
+                    and e.name.startswith("spasm/")):
+                n, t = spans.get(e.name, (0, 0.0))
+                spans[e.name] = (n + 1, t + (e.time_range.end
+                                             - e.time_range.start) / 1e6)
         busy = union_us((e.time_range.start, e.time_range.end)
                         for e in dev) / 1e6
         if busy > wall:
@@ -111,6 +137,8 @@ def main() -> int:
             print(f"   {g:30s} {v:.4f} s  {100 * v / kern_sum:5.1f} %")
         for name, (n, t) in sorted(byk.items(), key=lambda x: -x[1][1])[:10]:
             print(f"   {1e3 * t:9.1f} ms n={n:6d} {name[:90]}")
+        for name, (n, t) in sorted(spans.items(), key=lambda x: -x[1][1]):
+            print(f"   range {name:28s} device span {t:.4f} s (n={n})")
     return 0
 
 

@@ -2,21 +2,26 @@
 with CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package `spasm_tpu` (kept beside it as the
-reference).  This slice covers the rank path: `echelonize(A)` without L
-through the host structural pivot search and the device-resident dense
-finisher, for primes p <= 65279 (the d = 2 digit tier, which holds the
-tools' default modulus 42013), and the `rank` CLI
-(`python -m spasm_tpu_torch.cli.rank`).  Other paths raise
+reference).  Ported so far, for primes p <= 65279 (the d = 2 digit tier,
+which holds the tools' default modulus 42013): `echelonize(A)` through
+the host structural pivot search (round 0) and the dense finishers — the
+device-resident rank finisher, the blocked dense finisher (RREF, or LU
+for complete PLUQ: `EchelonizeOptions(L=True, complete=True)`) and the
+low-rank finisher with its completion test — plus
+`certificate.factorization_verify` and the `rank` CLI
+(`python -m spasm_tpu_torch.cli.rank`).  Other paths (the sparse Schur
+rounds, GPLU, checkpoints, larger primes, the other tools) raise
 NotImplementedError naming their ROADMAP item.
 
-Layout: the host modules (field, csr, hashing, sio, gen, pivots and the
-native C++ pivot search) are vendored from `spasm_tpu` with only their
-imports changed; the device side is plain functions on tensors and small
-classes holding device tensors (`ReducedBasis`, `CompactBasis`).  The
+Layout: the host modules (field, csr, hashing, sio, gen, pivots, spmv,
+triangular and the native C++ pivot search and triangular solves) are
+vendored from `spasm_tpu` with only their imports changed; the device
+side is plain functions on tensors and small classes holding device
+tensors (`ReducedBasis`, `CompactBasis`, `UEliminator`).  The
 device is explicit: `echelonize(A, opts, device="cuda")`; the CPU runs
 only when a caller passes it, taking each kernel's plain torch version.
 Nothing here has parameters or gradients, so no `nn.Module` or
-`autograd.Function` appears.  The three CUDA kernels (csrc/) are built
+`autograd.Function` appears.  The four CUDA kernels (csrc/) are built
 by nvcc on first use.
 
 Numbers are balanced integers x in [-(p-1)/2, (p-1)/2], exactly as in

@@ -1,15 +1,18 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources are compiled by nvcc for sm_90a into one shared library with
-a plain C interface (no PyTorch headers: seconds to build), under
-`build/spasm_tpu_torch/` at the repository root, on first use.  They are
+The sources are compiled by nvcc for sm_90a, one process per source, all
+at once, and linked into one shared library with a plain C interface (no
+PyTorch headers: seconds to build), under `build/spasm_tpu_torch/` at
+the repository root, on first use.  They are
 rebuilt when a source is newer than the library.  The library is loaded
 with ctypes; every pointer and the stream pass as c_void_p, and every C
 entry returns cudaGetLastError(), which `check` turns into an exception.
 
 `launches` counts the CUDA kernel launches each wrapper issued: B1 the
 substitution waves (dense/subst.py), B2 and B3 the row sweeps
-(dense/rowrref.py).  Nothing here runs at import.
+(dense/rowrref.py), B4 the panel steps of the column-sweep elimination
+(dense/panel.py), counted apart in RREF and LU mode.  Nothing here runs
+at import.
 """
 from __future__ import annotations
 
@@ -23,11 +26,12 @@ from typing import Dict, Optional
 
 _HERE = pathlib.Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
-_SOURCES = ("subst.cu", "row_sweep.cu")
+_SOURCES = ("subst.cu", "row_sweep.cu", "panel.cu")
 _HEADERS = ("modp.cuh",)
 BUILD_DIR = _HERE.parent / "build" / "spasm_tpu_torch"
 
-launches: Dict[str, int] = {"B1": 0, "B2": 0, "B3": 0}
+launches: Dict[str, int] = {"B1": 0, "B2": 0, "B3": 0, "B4 rref": 0,
+                             "B4 lu": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # set when this process compiled
@@ -48,16 +52,37 @@ def _nvcc() -> str:
 
 
 def _build(so: pathlib.Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp] + [str(_CSRC / s) for s in _SOURCES]
+    tag = f"{os.getpid()}.tmp"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC"]
     t0 = time.time()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
+    objs, procs = [], []
+    for s in _SOURCES:
+        obj = str(BUILD_DIR / f"{s}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_nvcc()] + flags + ["-Xptxas", "-v", "-c", str(_CSRC / s),
+                                 "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], False
+    for pr in procs:
+        out, _ = pr.communicate(timeout=600)
+        logs.append(out)
+        failed |= pr.returncode != 0
+    build_log = "".join(logs)
+    if not failed:
+        tmp = f"{so}.{tag}"
+        r = subprocess.run([_nvcc()] + flags + ["-shared", "-o", tmp] + objs,
+                           capture_output=True, text=True, timeout=600)
+        build_log += r.stdout + r.stderr
+        failed = r.returncode != 0
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
         raise RuntimeError("nvcc failed:\n" + build_log[-4000:])
     os.replace(tmp, so)
     build_seconds = time.time() - t0
@@ -82,6 +107,9 @@ def lib() -> ctypes.CDLL:
     L.spasm_row_sweep.argtypes = [vp, ci, ci, vp, vp, ci, vp]
     L.spasm_row_sweep_tiles.restype = ci
     L.spasm_row_sweep_tiles.argtypes = [vp, ci, vp, ci, vp]
+    L.spasm_panel.restype = ci
+    L.spasm_panel.argtypes = [vp, ctypes.c_longlong, ci, vp, vp, vp, vp, vp,
+                              vp, vp, vp, ci, ci, vp]
     L.spasm_tile_width.restype = ci
     L.spasm_tile_width.argtypes = []
     _lib = L

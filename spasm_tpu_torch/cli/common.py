@@ -1,8 +1,7 @@
 """Shared CLI plumbing: input/modulus options and echelonization flags.
 
 Port of spasm_tpu/cli/common.py (the reference's argp parsers,
-tools/common.c:12-110), without the flags of unported finishers
-(--dense-block-size, --min-rank-ratio).  The finisher runs on the card.
+tools/common.c:12-110).  The finishers run on the card.
 """
 from __future__ import annotations
 
@@ -43,6 +42,10 @@ def add_echelonize_args(ap: argparse.ArgumentParser):
                    default=0.1,
                    help="Stop when pivot proportion drops below P")
     g = ap.add_argument_group("Dense code options")
+    g.add_argument("--dense-block-size", metavar="N", type=int, default=1000,
+                   help="Use dense blocks of at least N rows")
+    g.add_argument("--min-rank-ratio", metavar="R", type=float, default=0.5,
+                   help="Low-rank mode when k rows have rank <= k*R")
     g.add_argument("--max-aspect-ratio", metavar="R", type=float,
                    default=5.0,
                    help="Low-rank mode when #rows/#cols >= R")
@@ -65,6 +68,8 @@ def opts_from_args(args) -> EchelonizeOptions:
         sparsity_threshold=args.dense_threshold,
         min_pivot_proportion=args.min_pivot_proportion,
         tall_and_skinny_ratio=args.max_aspect_ratio,
+        dense_block_size=args.dense_block_size,
+        low_rank_ratio=args.min_rank_ratio,
         checkpoint_file=getattr(args, "checkpoint", None),
     )
 

@@ -5,8 +5,8 @@ unless --no-transpose.  Usage:
 
     python -m spasm_tpu_torch.cli.rank --modulus 42013 < matrix.sms
 
---certificate is not ported yet (ROADMAP: L-mode, the solvers, the
-other CLI tools).
+--certificate is not ported yet (ROADMAP: L-mode's remaining consumers
+and the other CLI tools).
 """
 from __future__ import annotations
 
@@ -34,8 +34,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.certificate:
         raise NotImplementedError(
-            "rank certificates are not ported yet (ROADMAP: L-mode, the "
-            "solvers, the other CLI tools)")
+            "rank certificates are not ported yet (ROADMAP: L-mode's "
+            "remaining consumers and the other CLI tools)")
 
     T, _ = load_input_triplet(args)
     if not args.no_transpose and T.n < T.m:

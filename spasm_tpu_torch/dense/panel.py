@@ -1,0 +1,89 @@
+"""Kernel B4: the latency-bound part of one panel step of the blocked
+column-sweep elimination (dense/elim.py), with its plain version.
+
+Port of spasm_tpu/dense/sweep_pallas.py.  `panel_pivots(P0, is_piv, p,
+nb, rref)` takes an (n, nb = 64) int32 column panel P0 (a view of the
+block being eliminated: unit column stride, any row stride) and the
+(n,) bool mask of rows already pivotal, and returns
+
+    (lrows, lhas, is_piv', Z)           RREF: Z = W^-1
+    (lrows, lhas, is_piv', Z, Vinv)     LU: Z = D^-1 Lambda^-1, Vinv the
+                                        inverse of the unit-upper D^-1 Omega
+
+with lrows (nb,) int32 pivot row per slot (-1 if none), lhas (nb,) bool,
+is_piv' (n,) bool and W the panel's pivot minor (identity on empty
+slots).  A CUDA tensor launches the kernel (csrc/panel.cu, one
+cooperative launch); a CPU tensor takes `_panel_plain`, the XLA path of
+the JAX package (`_discovery_sweep`, W assembly, `_jordan_inverse` /
+`_forward_factor` + `_unit_upper_inverse_small`), which the JAX tests
+hold against the Pallas kernel.  Every output is unique (first-available
+-row pivots; the inverse and LU factors of W), so the two agree bit for
+bit.  p <= 65279: the division-free updates need 2 (p/2)^2 < 2^31.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _cuda
+from .elim import (_discovery_sweep, _forward_factor, _jordan_inverse,
+                   _unit_upper_inverse_small)
+from .modp import check_prime
+
+NB = 64          # the kernel's panel width (csrc/panel.cu kNB)
+
+
+def _check(P0: torch.Tensor, is_piv: torch.Tensor, p: int, nb: int):
+    check_prime(p)
+    if nb != NB:
+        raise ValueError(f"the panel kernel takes nb = {NB}, got {nb}")
+    if (P0.dtype != torch.int32 or P0.dim() != 2 or P0.shape[1] != nb
+            or P0.stride(1) != 1 or P0.shape[0] == 0):
+        raise ValueError("P0 must be an (n >= 1, 64) int32 panel with unit "
+                         "column stride")
+    if (is_piv.dtype != torch.bool or is_piv.shape != (P0.shape[0],)
+            or is_piv.device != P0.device):
+        raise ValueError("is_piv must be an (n,) bool tensor on P0's device")
+
+
+def panel_pivots(P0: torch.Tensor, is_piv: torch.Tensor, p: int, nb: int,
+                 rref: bool):
+    """Kernel B4 (see the module docstring)."""
+    _check(P0, is_piv, p, nb)
+    if P0.device.type == "cpu":
+        return _panel_plain(P0, is_piv, p, nb, rref)
+    if P0.device.type != "cuda":
+        raise ValueError(f"unsupported device {P0.device}")
+    n = P0.shape[0]
+    dev = P0.device
+    is_piv = is_piv.contiguous()
+    lrows = torch.empty(nb, dtype=torch.int32, device=dev)
+    lhas = torch.empty(nb, dtype=torch.bool, device=dev)
+    piv_out = torch.empty(n, dtype=torch.bool, device=dev)
+    Z = torch.empty((nb, nb), dtype=torch.int32, device=dev)
+    Vinv = torch.empty((nb, nb), dtype=torch.int32, device=dev)
+    Pt = torch.empty(nb * n, dtype=torch.int32, device=dev)
+    rslot = torch.empty(nb, dtype=torch.int32, device=dev)
+    err = _cuda.lib().spasm_panel(
+        P0.data_ptr(), P0.stride(0), n, is_piv.data_ptr(), lrows.data_ptr(),
+        lhas.data_ptr(), piv_out.data_ptr(), Z.data_ptr(), Vinv.data_ptr(),
+        Pt.data_ptr(), rslot.data_ptr(), p, int(rref), _cuda.stream_ptr(P0))
+    _cuda.check(err, "kernel B4 (spasm_panel)")
+    _cuda.launches["B4 rref" if rref else "B4 lu"] += 1
+    if rref:
+        return lrows, lhas, piv_out, Z
+    return lrows, lhas, piv_out, Z, Vinv
+
+
+def _panel_plain(P0: torch.Tensor, is_piv: torch.Tensor, p: int, nb: int,
+                 rref: bool):
+    """Plain version of B4 on P0's device (the JAX package's XLA path)."""
+    piv = _discovery_sweep(P0, is_piv, p)
+    lsafe = torch.where(piv.lhas, piv.lrows, 0).to(torch.int64)
+    both = piv.lhas[:, None] & piv.lhas[None, :]
+    W = torch.where(both, P0[lsafe], torch.eye(nb, dtype=torch.int32,
+                                               device=P0.device))
+    if rref:
+        return piv.lrows, piv.lhas, piv.is_piv, _jordan_inverse(W, p)
+    Zlu, Vup = _forward_factor(W, p)
+    return (piv.lrows, piv.lhas, piv.is_piv, Zlu,
+            _unit_upper_inverse_small(Vup, p))

@@ -1,16 +1,21 @@
-"""The echelonization engine on the rank path: structural pivot rounds
-and the device-resident dense finisher.
+"""The echelonization engine: structural pivot rounds and the dense
+finishers.
 
-Port of spasm_tpu/echelonize.py, restricted to the slice that `rank`
-runs (no L): the round loop finds structural pivots on the host and
-stops as soon as the free columns fit the device finisher (status 3) or
-nothing is left (status 1); `_Engine.finish_device_dense` then finds the
-remaining rank on the device (`device`, default "cuda").
+Port of spasm_tpu/echelonize.py.  Round 0 finds structural pivots on the
+host, then stops when nothing is left (status 1), when the free columns
+fit the device-resident rank finisher (status 3, no L), or when too few
+pivots were found or the sampled Schur complement is dense (status 2).
+The finishers then run on `device` (default "cuda"):
+  * `finish_device_dense` (status 3): reduced basis + row-sweep RREF;
+  * `finish_dense`: blocked dense Schur blocks eliminated by the chunked
+    `UEliminator` and factored by the column-sweep RREF (no L) or LU
+    (L / complete PLUQ, `EchelonizeOptions(L=True, complete=True)`);
+  * `finish_dense_lowrank`: random combinations for tall remainders, with
+    the probabilistic completion test `test_completion`.
 
-Paths outside the slice raise NotImplementedError naming their ROADMAP
-item: L / complete PLUQ, checkpoint files, p > 65279, the sparse Schur
-rounds and the host finishers (finish_dense, finish_dense_lowrank,
-finish_gplu).  (reference: spasm_echelonize.c:473-617)
+Paths outside the port so far raise NotImplementedError naming their
+ROADMAP item: the sparse Schur rounds and the GPLU finisher, checkpoint
+files, p > 65279.  (reference: spasm_echelonize.c:473-617)
 """
 from __future__ import annotations
 
@@ -26,13 +31,17 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from .csr import CSR, _concat_ranges
+from .csr import COO, CSR, _concat_ranges
 from .field import Field
 from .hashing import PRNG
 from .pivots import find_structural_pivots
 from .profiling import annotate, phase
-from .dense.elim import _size_bucket
-from .dense.modp import check_prime
+from .schur import (estimate_density, schur_dense_block,
+                    schur_dense_block_device, schur_dense_randomized)
+from .dense.block import UEliminator, _unit_upper_inverse_log
+from .dense.elim import (_size_bucket, dense_lu, dense_lu_device, dense_rank,
+                         dense_rref, dense_rref_device)
+from .dense.modp import check_prime, matmul_digits
 
 log = logging.getLogger("spasm_tpu_torch")
 if not log.handlers:
@@ -46,10 +55,9 @@ if not log.handlers:
 class EchelonizeOptions:
     """Mirror of struct echelonize_opts (spasm.h:84-108) with the
     reference defaults (spasm_echelonize.c:9-28), plus the device
-    finisher's knobs of the JAX package.  Only fields that the ported
-    slice reads are kept; those of unported finishers (dense_block_size,
-    low_rank_ratio, checkpoint_interval_s) are left out, so setting one
-    is an error rather than silently ignored."""
+    finisher's knobs of the JAX package.  Only fields that ported code
+    reads are kept (checkpoint_interval_s waits for checkpoints), so
+    setting an unported one is an error rather than silently ignored."""
     enable_greedy_pivot_search: bool = True
     enable_tall_and_skinny: bool = True
     enable_dense: bool = True
@@ -58,11 +66,16 @@ class EchelonizeOptions:
     complete: bool = False
     min_pivot_proportion: float = 0.1
     # rounds of structural pivots + sparse Schur complement; a round
-    # that needs the Schur complement raises (not ported), so only 0
-    # (no round: the finisher takes the whole matrix) differs from 1
+    # that needs the sparse Schur complement raises (not ported), so only
+    # 0 (no round: the finisher takes the whole matrix) differs from 1
     max_round: int = 3
     sparsity_threshold: float = 0.05
     tall_and_skinny_ratio: float = 5.0
+    # finish_dense: rows per dense block (at least; scaled up to
+    # _DENSE_ELEM_BUDGET elements); a block whose rank is below
+    # low_rank_ratio * rows switches to the low-rank finisher
+    dense_block_size: int = 1000
+    low_rank_ratio: float = 0.5
     low_rank_start_weight: int = -1
     # BFS expansion budget for the greedy pivot search; -1 = auto
     # (32 * nnz), 0 = unlimited.
@@ -81,8 +94,71 @@ class EchelonizeOptions:
     checkpoint_file: Optional[str] = None
 
 
+# L-mode dense blocks of at least this many elements (rows x free
+# columns) run the device-resident Schur + LU path; smaller blocks keep
+# the host sweep.
+_DEVICE_LU_MIN = 1 << 16
+# finish_dense's element budget per block: the device Schur block is a
+# transient full-width (rows, m) array, so rows = budget // m
+_DENSE_ELEM_BUDGET = 64 << 20
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+class _LBuilder:
+    """Triplet accumulator for L (the reference's Ltmp).  Dense-factor
+    parts may stay on the device behind thunks (add_pending) that return
+    host (rows, cols, vals) triplets only when L is built, so the
+    factorization's wall excludes the factors' device-to-host copy."""
+
+    def __init__(self, prime: int):
+        self.prime = prime
+        self.rows: List[np.ndarray] = []
+        self.cols: List[np.ndarray] = []
+        self.vals: List[np.ndarray] = []
+        self._pending: List = []
+
+    def add_pending(self, thunk):
+        self._pending.append(thunk)
+
+    def flush_pending(self):
+        pending, self._pending = self._pending, []
+        for th in pending:
+            r, c, v = th()
+            if len(r):
+                self.add_batch(r, c, v)
+
+    def add_batch(self, i, j, x):
+        self.rows.append(np.asarray(i, np.int64))
+        self.cols.append(np.asarray(j, np.int64))
+        self.vals.append(np.asarray(x, np.int64))
+
+    def truncate(self) -> int:
+        return len(self.rows)
+
+    def rollback_filter(self, mark: int, keep_row) -> None:
+        """Drop entries added after `mark` whose row fails keep_row."""
+        for k in range(mark, len(self.rows)):
+            sel = keep_row(self.rows[k])
+            self.rows[k] = self.rows[k][sel]
+            self.cols[k] = self.cols[k][sel]
+            self.vals[k] = self.vals[k][sel]
+
+    def build(self, n: int, ncols: int) -> CSR:
+        self.flush_pending()
+        if self.rows:
+            r = np.concatenate(self.rows)
+            c = np.concatenate(self.cols)
+            v = np.concatenate(self.vals)
+        else:
+            r = c = v = np.empty(0, np.int64)
+        T = COO.from_entries(n, max(ncols, 1), self.prime, r, c, v)
+        T.n, T.m = n, max(ncols, 1)
+        A = T.tocsr()
+        A.resize(n, ncols)
+        return A
 
 
 class _UBuilder:
@@ -110,6 +186,16 @@ class _UBuilder:
     @property
     def n(self) -> int:
         return self._n
+
+    def add_row(self, pivcol: int, cols: np.ndarray, vals: np.ndarray):
+        """cols/vals: a full row with value 1 at pivcol, stored pivot
+        first.  Returns the stored (cols, vals) pair."""
+        sel = cols != pivcol
+        c = np.concatenate(([pivcol], cols[sel])).astype(np.int32)
+        v = np.concatenate(([1], vals[sel])).astype(np.int32)
+        self.add_rows_bulk(np.asarray([pivcol], np.int64),
+                           np.asarray([0, c.size], np.int64), c, v)
+        return c, v
 
     def add_rows_bulk(self, pivcols: np.ndarray, offs: np.ndarray,
                       cols: np.ndarray, vals: np.ndarray, levels=None):
@@ -235,18 +321,23 @@ def _intra_levels(offs: np.ndarray, cols: np.ndarray,
 
 class LU:
     """Result object (the reference's struct spasm_lu, spasm.h:64-72).
-    U is materialized from the device on first access, so rank-only
-    callers never pay the basis-sized device-to-host copy."""
+    U and L are materialized from the device on first access, so callers
+    that only need the rank never pay the factor-sized device-to-host
+    copies.  With L: A == L @ U when `complete`, else on the pivotal rows
+    p."""
 
     def __init__(self, r: int, U: Optional[CSR] = None,
-                 qinv: Optional[np.ndarray] = None, u_thunk=None):
+                 qinv: Optional[np.ndarray] = None,
+                 L: Optional[CSR] = None, p: Optional[np.ndarray] = None,
+                 complete: bool = False, u_thunk=None, l_thunk=None):
         self.r = r
         self._U = U
         self._u_thunk = u_thunk
         self.qinv = qinv        # (m,) pivot of col j on row qinv[j] of U
-        self.L = None
-        self.p = None
-        self.complete = False
+        self._L = L
+        self._l_thunk = l_thunk
+        self.p = p              # (r,) original row of pivot k
+        self.complete = complete
         # finisher stage wall clocks (seconds) when SPASM_PROFILE_FINISH=1
         self.profile: dict = {}
 
@@ -256,6 +347,13 @@ class LU:
             self._U = self._u_thunk()
             self._u_thunk = None
         return self._U
+
+    @property
+    def L(self) -> Optional[CSR]:
+        if self._L is None and self._l_thunk is not None:
+            self._L = self._l_thunk()
+            self._l_thunk = None
+        return self._L
 
 
 class _Engine:
@@ -267,6 +365,11 @@ class _Engine:
         self.prime = A.prime
         self.field = A.field
         self.U = _UBuilder(A.m, A.prime)
+        self.L = _LBuilder(A.prime) if opts.L else None
+        self.Lp: List[int] = []          # original pivot row per U row
+        # staged lazily: the rank path through finish_device_dense never
+        # composes its chunks
+        self.elim = UEliminator(A.m, A.prime, self.device)
         self._fp: Optional[bytes] = None
         self.profile: dict = {}
 
@@ -277,10 +380,16 @@ class _Engine:
             self._fp = ckpt.matrix_fingerprint(self.A0)
         return self._fp
 
-    def extract_structural(self, S: CSR) -> tuple:
-        """Find structural pivots in S and push them to U.  Returns
-        (npiv, p) with the pivotal rows of S first in topological order.
-        (reference: spasm_pivots_extract_structural,
+    def _push_u_row(self, pivcol: int, cols, vals):
+        cols_p, vals_p = self.U.add_row(pivcol, np.asarray(cols),
+                                        np.asarray(vals))
+        self.elim.append_rows(
+            [(cols_p.astype(np.int64), vals_p, int(pivcol))], flush=False)
+
+    def extract_structural(self, S: CSR, p_in=None) -> tuple:
+        """Find structural pivots in S and push them to U (and L).
+        Returns (npiv, p) with the pivotal rows of S first in topological
+        order.  (reference: spasm_pivots_extract_structural,
         spasm_pivots.c:369-448)"""
         t0 = time.time()
         with phase("pivots"):
@@ -303,6 +412,11 @@ class _Engine:
             alpha = F.inverse_array(pv).astype(np.int64)
             scaled = F.narray(vals_flat * alpha[rowrep]).astype(np.int32)
             offs = np.concatenate(([0], np.cumsum(lens)))
+            iorigs = (np.asarray(p_in, np.int64)[rows]
+                      if p_in is not None else rows)
+            if self.L is not None:
+                self.L.add_batch(iorigs, self.U.n + np.arange(npiv), pv)
+            self.Lp.extend(int(v) for v in iorigs)
             # pivot-first: swap each row's pivot entry into its first slot
             piv_pos = np.flatnonzero(on_piv)
             first = offs[:-1]
@@ -314,9 +428,247 @@ class _Engine:
             vals2[first] = 1
             self.U.add_rows_bulk(pivcols, offs, cols2.astype(np.int32),
                                  vals2, levels=levels)
+            self.elim.append_segment(offs, cols2, vals2, pivcols, levels)
         log.info("[pivots] %d structural pivots found [%.2fs]",
                  npiv, time.time() - t0)
         return npiv, p
+
+    def update_after_rref(self, R: np.ndarray, pivcols: np.ndarray,
+                          q: np.ndarray):
+        """Push dense RREF rows (columns compacted by q) into U.
+        (reference: update_U_after_rref, spasm_echelonize.c:192-223)"""
+        nz_r, nz_c = np.nonzero(R)
+        counts = np.bincount(nz_r, minlength=R.shape[0])
+        offs = np.concatenate(([0], np.cumsum(counts)))
+        vals_flat = R[nz_r, nz_c]
+        cols_flat = q[nz_c]
+        for k in range(len(pivcols)):
+            sl = slice(offs[k], offs[k + 1])
+            self._push_u_row(int(q[pivcols[k]]), cols_flat[sl],
+                             vals_flat[sl])
+
+    def update_after_lu(self, rank: int, prows, pivcols, Ld, Urows,
+                        q: np.ndarray, p_out: np.ndarray, lmark: int):
+        """Push a host dense LU into U and L.
+        (reference: update_fact_after_LU, spasm_echelonize.c:228-313)"""
+        if not self.opts.complete:
+            pivotal = np.asarray(sorted(set(int(p_out[r]) for r in prows))
+                                 or [-1], np.int64)
+            self.L.rollback_filter(lmark,
+                                   lambda rows: np.isin(rows, pivotal))
+        ubase = self.U.n
+        rows_iter = range(Ld.shape[0]) if self.opts.complete else \
+            [int(r) for r in prows]
+        for i in rows_iter:
+            nz = np.nonzero(Ld[i])[0]
+            if nz.size:
+                self.L.add_batch(np.full(nz.size, int(p_out[i]), np.int64),
+                                 ubase + nz, Ld[i][nz])
+        for k in range(rank):
+            self.Lp.append(int(p_out[prows[k]]))
+            nz = np.nonzero(Urows[k])[0]
+            self._push_u_row(int(q[pivcols[k]]), q[nz], Urows[k][nz])
+
+    def _dense_lu_block_device(self, S: CSR, rows: np.ndarray, p_in) -> int:
+        """Device-resident L-mode dense block: Schur elimination,
+        column-pivoted LU and the factor merge run on the device, and the
+        factors stay there.  L gets thunks, U a pending device segment,
+        and the eliminator a device-composed chunk V = (I + W)^-1 Ud with
+        its winv, so later blocks park per-U-row coefficients.  No
+        factor-sized copy to the host happens unless the caller reads L
+        or U.  (reference: update_fact_after_LU,
+        spasm_echelonize.c:228-313)  Returns the block's rank."""
+        dev = self.device
+        ts = time.time()
+        Xq, q, p_out, (Cd, piv_cols) = schur_dense_block_device(
+            S, rows, p_in, self.U.qinv, self.elim, want_L=True)
+        ts = self._stage("schur", ts)
+        prows, pivcols, Ld, Ud = dense_lu_device(Xq, self.prime)
+        ts = self._stage("lu", ts)
+        rank = int(pivcols.size)
+        B = len(rows)
+        keep = None
+        if not self.opts.complete:
+            keep = np.zeros(B, bool)
+            keep[prows] = True
+        ucols = self.U.qinv[piv_cols].copy()
+
+        def thunk_C(Cd=Cd, npc=piv_cols.size, uc=ucols, po=p_out,
+                    keep=keep, B=B):
+            # part 1: the coefficients against the prior pivots
+            C = Cd[:B, :npc].cpu().numpy()
+            if keep is not None:
+                C = np.where(keep[:, None], C, 0)
+            r, c = np.nonzero(C)
+            return po[r], uc[c], C[r, c].astype(np.int64)
+
+        self.L.add_pending(thunk_C)
+        if rank:
+            ubase = self.U.n
+
+            def thunk_Ld(Ld=Ld, po=p_out, ubase=ubase, keep=keep, B=B):
+                # part 2: the dense factor's multipliers
+                Lh = Ld[:B].cpu().numpy()
+                if keep is not None:
+                    Lh = np.where(keep[:, None], Lh, 0)
+                r, c = np.nonzero(Lh)
+                return po[r], ubase + c, Lh[r, c].astype(np.int64)
+
+            self.L.add_pending(thunk_Ld)
+            colmap = np.full(Ud.shape[1], self.m, np.int64)
+            colmap[:q.size] = q
+            self.U.add_dense_rows_device(Ud, colmap, q[pivcols])
+            with phase("compose_chunk"):
+                W = torch.triu(Ud[:, torch.as_tensor(pivcols, device=dev)],
+                               1)
+                Winv = _unit_upper_inverse_log(W, self.prime)
+                V = matmul_digits(Winv, Ud, self.prime)
+            self.elim.flush()
+            self.elim._register_device_chunk(V, colmap, pivcols, winv=Winv)
+            self.Lp.extend(p_out[prows].tolist())
+        self._stage("merge", ts)
+        return rank
+
+    def test_completion(self, S: CSR, p: np.ndarray, n: int) -> bool:
+        """Probabilistic early-abort test with ceil(128 / log2 p) random
+        full combinations (spasm_echelonize.c:30-51)."""
+        if n == 0 or S.nnz == 0:
+            return True
+        Sn = int(np.ceil(128 / np.log2(self.prime)))
+        if self.elim.nrows > 0:
+            # on the device: only the (m,) pivot map returns to the host
+            Xd, _ = schur_dense_randomized(S, p, n, None, self.U.qinv, Sn,
+                                           0, eliminator=self.elim,
+                                           return_device=True)
+            _, pivcols = dense_rref_device(Xd, self.prime)
+            return len(pivcols) == 0
+        X, _ = schur_dense_randomized(S, p, n, self.U.snapshot_csr(),
+                                      self.U.qinv, Sn, 0,
+                                      eliminator=self.elim)
+        return dense_rank(X, self.prime, device=self.device) == 0
+
+    @annotate("finish_lowrank")
+    def finish_dense_lowrank(self, S: CSR, p: np.ndarray, n: int):
+        """Randomized tall-and-skinny finisher
+        (echelonize_dense_lowrank, spasm_echelonize.c:315-379)."""
+        opts = self.opts
+        rank_ub = min(n, self.m - self.U.n)
+        w = int(np.ceil(-np.log(0.01) * n / max(rank_ub, 1))) \
+            if opts.low_rank_start_weight < 0 else opts.low_rank_start_weight
+        t0 = time.time()
+        old_un = self.U.n
+        seed = 0
+        rounds = 0
+        use_device = self.elim.nrows > 0
+        while True:
+            Sn = min(rank_ub, opts.dense_block_size)
+            if Sn <= 0:
+                break
+            if use_device:
+                Xd, q = schur_dense_randomized(
+                    S, p, n, None, self.U.qinv, Sn, w, eliminator=self.elim,
+                    seed_base=seed, return_device=True)
+                seed += Sn
+                Rd, pivcols = dense_rref_device(Xd, self.prime)
+                rr = len(pivcols)
+                if rr:
+                    self.elim.append_device_chunk(Rd, q, pivcols)
+                    self.U.add_dense_rows_device(Rd, q, q[pivcols])
+            else:
+                X, q = schur_dense_randomized(
+                    S, p, n, self.U.snapshot_csr(), self.U.qinv, Sn, w,
+                    eliminator=self.elim, seed_base=seed)
+                seed += Sn
+                R, pivcols = dense_rref(X, self.prime, device=self.device)
+                rr = len(pivcols)
+                if rr:
+                    self.update_after_rref(R, pivcols, q)
+            if rr == 0:
+                if self.test_completion(S, p, n):
+                    break
+                log.info("[lowrank] failed termination test; full combos")
+                w = 0
+                continue
+            if rr < 0.9 * Sn:
+                w = max(2 * w, 2)
+            use_device = self.elim.nrows > 0
+            rank_ub -= rr
+            rounds += 1
+            log.info("[lowrank] round %d: %d new pivots", rounds, rr)
+        log.info("[lowrank] done in %.1fs, %d new pivots",
+                 time.time() - t0, self.U.n - old_un)
+
+    def _stage(self, name: str, since: float) -> float:
+        """SPASM_PROFILE_FINISH=1: add the wall clock since `since`,
+        closed by a device synchronize, to stage `name` of self.profile.
+        Returns the new start."""
+        if os.environ.get("SPASM_PROFILE_FINISH"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.profile[name] = (self.profile.get(name, 0.0)
+                                  + time.time() - since)
+        return time.time()
+
+    @annotate("finish_dense")
+    def finish_dense(self, S: CSR, p: np.ndarray, n: int, p_in):
+        """Blocked dense finisher (echelonize_dense,
+        spasm_echelonize.c:385-463): blocks of rows become dense Schur
+        blocks on the device, then RREF (no L) or LU (L mode) there;
+        L-mode blocks under _DEVICE_LU_MIN elements take the host sweep.
+        Stage clocks: see _stage."""
+        opts = self.opts
+        dev = self.device
+        t0 = time.time()
+        old_un = self.U.n
+        lowrank_mode = False
+        processed = 0
+        while True:
+            # the device Schur block is a transient full-width (B, m)
+            # array: the budget divides by m, not by the free columns
+            auto_bs = max(opts.dense_block_size,
+                          _DENSE_ELEM_BUDGET // max(self.m, 1))
+            Sn = min(auto_bs, n - processed)
+            if Sn <= 0:
+                break
+            rows = p[processed:processed + Sn]
+            ts = time.time()
+            if opts.L and Sn * max(self.m - self.U.n, 1) >= _DEVICE_LU_MIN:
+                rr = self._dense_lu_block_device(S, rows, p_in)
+            elif opts.L:
+                lmark = self.L.truncate()
+                X, q, p_out = schur_dense_block(
+                    S, rows, p_in, self.U.qinv, self.elim, self.L,
+                    U_csr=self.U.snapshot_csr())
+                rank, prows, pivcols, Ld, Urows = dense_lu(
+                    X, self.prime, device=dev)
+                self.update_after_lu(rank, prows, pivcols, Ld, Urows, q,
+                                     p_out, lmark)
+                rr = rank
+                self._stage("host_lu_block", ts)
+            else:
+                # on the device: eliminate -> RREF -> register the pivot
+                # rows as a device chunk, no matrix-sized copy to the host
+                Xd, q, p_out = schur_dense_block_device(
+                    S, rows, p_in, self.U.qinv, self.elim)
+                ts = self._stage("schur", ts)
+                Rd, pivcols = dense_rref_device(Xd, self.prime)
+                ts = self._stage("rref", ts)
+                rr = len(pivcols)
+                if rr:
+                    self.elim.append_device_chunk(Rd, q, pivcols)
+                    self.U.add_dense_rows_device(Rd, q, q[pivcols])
+                self._stage("register", ts)
+            processed += Sn
+            log.info("[dense] block of %d rows: %d new pivots", Sn, rr)
+            if opts.enable_tall_and_skinny and rr < opts.low_rank_ratio * Sn:
+                lowrank_mode = True
+                break
+        if lowrank_mode and n - processed > 0:
+            log.info("[dense] too few pivots; switching to low-rank mode")
+            self.finish_dense_lowrank(S, p[processed:], n - processed)
+        else:
+            log.info("[dense] done in %.1fs, %d new pivots",
+                     time.time() - t0, self.U.n - old_un)
 
     # -- device-resident finisher ------------------------------------------
 
@@ -547,14 +899,17 @@ class _Engine:
 
 def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
                device="cuda") -> LU:
-    """Rank-path echelon form of A: U (rank x m CSR, unit first-entry
-    pivots, materialized lazily) and qinv.  The device finisher runs on
-    `device` (default "cuda"; the CPU only when passed explicitly).
-    (reference: spasm_echelonize, spasm_echelonize.c:473-617)"""
+    """Echelon form of A, optionally a full PLUQ: U (rank x m CSR, unit
+    first-entry pivots) and qinv; with opts.L also L and p (A == L @ U
+    when opts.complete, which implies L).  U and L materialize lazily.
+    The finishers run on `device` (default "cuda"; the CPU only when
+    passed explicitly).  (reference: spasm_echelonize,
+    spasm_echelonize.c:473-617)"""
     opts = EchelonizeOptions() if opts is None else dataclasses.replace(opts)
-    if opts.L or opts.complete:
-        _not_ported("L / complete PLUQ", "L-mode, the solvers, the other "
-                    "CLI tools")
+    if opts.complete:
+        opts.L = True
+    if opts.L:
+        opts.enable_tall_and_skinny = False
     if opts.checkpoint_file:
         _not_ported("checkpoint_file", "checkpoints and multi-GPU")
     check_prime(A.prime)
@@ -579,13 +934,13 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
         npiv, p = eng.extract_structural(S)
         nfree = m - eng.U.n
         basis_bytes = (eng.U.n + min(S.n - npiv, nfree)) * nfree * itemsize
-        if eng.U.n == m:
+        if eng.U.n == m and not opts.L:
             log.info("[echelonize] full column rank from structural "
                      "pivots")
             status = 1
         # once the free columns fit a dense device block, the remaining
         # rank belongs to the device finisher
-        elif (opts.enable_dense
+        elif (not opts.L and opts.enable_dense
                 and 0 < nfree <= opts.device_dense_width
                 and (S.n - npiv) * nfree >= opts.device_dense_min
                 and basis_bytes <= opts.device_dense_mem):
@@ -596,8 +951,18 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
             log.info("[echelonize] not enough pivots found; stopping")
             status = 2
         else:
-            _not_ported("the sparse Schur rounds (schur_sparse, "
-                        "schur_sparse_reduced)", "the Schur rounds and GPLU")
+            with phase("density_estimate"):
+                density = estimate_density(S, p[npiv:], S.n - npiv,
+                                           eng.U.snapshot_csr(),
+                                           eng.U.qinv, 100, seed=1)
+            if density > opts.sparsity_threshold:
+                log.info("[echelonize] Schur complement is dense (%.2f%%)",
+                         100 * density)
+                status = 2
+            else:
+                _not_ported("the sparse Schur rounds (schur_sparse, "
+                            "schur_sparse_reduced)",
+                            "the Schur rounds and GPLU")
     if status == 0:
         npiv = 0
         p = np.arange(S.n, dtype=np.int64)
@@ -605,10 +970,12 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
     if status != 1:
         nrem = S.n - npiv
         aspect = nrem / max(m - eng.U.n, 1)
+        log.info("[echelonize] finishing; density=%.3f aspect=%.1f",
+                 density, aspect)
         nfree = m - eng.U.n
         use_device_finish = (
             status == 3
-            or (opts.enable_dense
+            or (not opts.L and opts.enable_dense
                 and 0 < nfree <= opts.device_dense_width
                 and nrem * nfree >= opts.device_dense_min
                 and (eng.U.n + min(nrem, nfree)) * nfree * itemsize
@@ -620,9 +987,9 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
             eng.finish_device_dense(S, p[npiv:], nrem)
         elif (opts.enable_tall_and_skinny
                 and aspect > opts.tall_and_skinny_ratio):
-            _not_ported("finish_dense_lowrank", "B4 with dense/elim.py")
+            eng.finish_dense_lowrank(S, p[npiv:], nrem)
         elif opts.enable_dense and density > opts.sparsity_threshold:
-            _not_ported("finish_dense", "B4 with dense/elim.py")
+            eng.finish_dense(S, p[npiv:], nrem, None)
         elif opts.enable_GPLU:
             _not_ported("finish_gplu", "the Schur rounds and GPLU")
         else:
@@ -631,6 +998,10 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
 
     r = eng.U.n
     fact = LU(r, None, eng.U.qinv.copy(), u_thunk=eng.U.snapshot_csr)
+    if opts.L:
+        fact._l_thunk = lambda: eng.L.build(n, r)
+        fact.p = np.asarray(eng.Lp[:r], dtype=np.int64)
+        fact.complete = opts.complete
     fact.profile = eng.profile
     nnz = eng.U.nnz()
     log.info("[echelonize] done in %.1fs; rank %d%s",

@@ -4,7 +4,10 @@
     from the arrays of a `spasm_tpu.csr.CSR`;
   * `ReducedBasis.from_numpy(R, qfree, pivcols, m, prime, device)`
     (dense/reduced.py): a port reduced basis around an R built by the
-    JAX package, so `form_block` can be compared on its own.
+    JAX package, so `form_block` can be compared on its own;
+  * `lu_from_numpy(r, U, qinv, L, p, complete)`: a port LU around the
+    factors of a JAX factorization, so the port's certificate checks
+    can judge it.
 
 Neither imports JAX: the caller passes numpy arrays.
 """
@@ -14,12 +17,21 @@ import numpy as np
 
 from .csr import CSR
 from .dense.reduced import ReducedBasis
+from .echelonize import LU
 from .field import Field
 
-__all__ = ["csr_from_numpy", "ReducedBasis"]
+__all__ = ["csr_from_numpy", "lu_from_numpy", "ReducedBasis"]
 
 
 def csr_from_numpy(n: int, m: int, prime: int, indptr, indices,
                    data) -> CSR:
     return CSR(n, m, Field(prime), np.asarray(indptr, np.int64),
                np.asarray(indices, np.int32), np.asarray(data, np.int32))
+
+
+def lu_from_numpy(r: int, U, qinv, L, p, complete: bool) -> LU:
+    """U and L: (n, m, prime, indptr, indices, data) tuples, the arrays of
+    a `spasm_tpu.csr.CSR`; qinv (m,) and p (r,) as numpy arrays."""
+    return LU(r, csr_from_numpy(*U), np.asarray(qinv, np.int64),
+              L=csr_from_numpy(*L), p=np.asarray(p, np.int64),
+              complete=complete)

@@ -1,4 +1,5 @@
-"""Native (C++) host kernels of the structural pivot search, via ctypes.
+"""Native (C++) host kernels of the structural pivot search and the
+batched sparse triangular solves, via ctypes.
 
 The source is the JAX package's `spasm_tpu/native/spasm_kernels.cpp`,
 compiled in place with g++ (it includes nothing of JAX or Python) into
@@ -6,7 +7,8 @@ compiled in place with g++ (it includes nothing of JAX or Python) into
 happens on first use, never at import; when no toolchain is available
 `available()` is False and the call sites run their pure-Python paths.
 
-Surface (the subset the rank path calls):
+Surface (the subset the ported paths call):
+  solve_batch        — parallel batched sparse triangular solves
   cycle_free_pivots  — greedy alternating-cycle-free pivot search
   fl_column_pivots   — Faugere-Lachartre pass on columns
   topo_order         — topological order of the pivotal rows
@@ -19,6 +21,7 @@ import os
 import pathlib
 import subprocess
 import sys
+from typing import List, Tuple
 
 import numpy as np
 
@@ -65,6 +68,12 @@ def available() -> bool:
     lib = ctypes.CDLL(str(so))
     I64 = ctypes.POINTER(ctypes.c_int64)
     I32 = ctypes.POINTER(ctypes.c_int32)
+    lib.spasm_solve_batch.restype = ctypes.c_int64
+    lib.spasm_solve_batch.argtypes = [
+        I64, I32, I32, ctypes.c_int32, ctypes.c_int32,
+        I64, I32, I32, ctypes.c_int32,
+        I64, ctypes.c_int64, I64, ctypes.c_int64, ctypes.c_int32, I64]
+    lib.spasm_solve_fetch.argtypes = [I64, I32, I32]
     lib.spasm_cycle_free_pivots.restype = ctypes.c_int64
     lib.spasm_cycle_free_pivots.argtypes = [
         I64, I32, ctypes.c_int32, ctypes.c_int32, I64, I64,
@@ -134,3 +143,31 @@ def row_levels(A, rows: np.ndarray, pinv: np.ndarray) -> np.ndarray:
         _p64(_arr64(A.indptr)), _p32(_arr32(A.indices)), A.n, A.m,
         _p64(rows), npiv, _p64(_arr64(pinv)), _p64(out))
     return out[:npiv]
+
+
+def solve_batch(U, B, rows, qinv, prime: int, nthreads: int = 0,
+                mask_cols=None) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Batched x*U = B[row] solves.  Returns [(cols, vals)] per row with
+    coefficients on pivotal columns and the Schur residue elsewhere,
+    column-sorted.  mask_cols (optional, per row): one column treated as
+    non-pivotal during that row's solve (-1 = none)."""
+    rows = _arr64(rows)
+    mc = _arr64(mask_cols) if mask_cols is not None else None
+    total = _lib.spasm_solve_batch(
+        _p64(_arr64(U.indptr)), _p32(_arr32(U.indices)),
+        _p32(_arr32(U.data)), U.n, U.m,
+        _p64(_arr64(B.indptr)), _p32(_arr32(B.indices)),
+        _p32(_arr32(B.data)), B.n,
+        _p64(rows), len(rows), _p64(_arr64(qinv)), prime, nthreads,
+        _p64(mc) if mc is not None else None)
+    lens = np.empty(max(len(rows), 1), np.int64)
+    cols = np.empty(max(total, 1), np.int32)
+    vals = np.empty(max(total, 1), np.int32)
+    _lib.spasm_solve_fetch(_p64(lens), _p32(cols), _p32(vals))
+    out = []
+    off = 0
+    for k in range(len(rows)):
+        ln = int(lens[k])
+        out.append((cols[off:off + ln].copy(), vals[off:off + ln].copy()))
+        off += ln
+    return out

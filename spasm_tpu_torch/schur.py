@@ -1,0 +1,243 @@
+"""Dense Schur complement blocks and the density estimate of the dense
+finishers.
+
+Port of the parts of spasm_tpu/schur.py that the dense finishers call
+(the reference's spasm_schur.c): batched triangular solves
+(`solve_rows`, native C++ or the scalar host solver), the sampled
+density estimate, and the dense Schur blocks, eliminated on the device
+by the chunked `UEliminator` (dense/block.py) and left there.  The
+sparse Schur complement (`schur_sparse` and its packing) belongs to the
+sparse Schur rounds, which are not ported yet (ROADMAP: the Schur rounds
+and GPLU).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .csr import CSR, _concat_ranges
+from .dense.elim import _size_bucket
+from .hashing import PRNG
+from .profiling import annotate
+from .triangular import sparse_triangular_solve
+
+_DEVICE_THRESHOLD = 1 << 21    # rows * m below this: the host path wins
+
+
+def solve_rows(U: CSR, B: CSR, rows, qinv: np.ndarray, prime: int):
+    """Batch of x*U = B[row] solves -> [(cols, vals)] (column-sorted,
+    coefficients on pivotal columns, residue elsewhere).  Native C++
+    (parallel) when it builds, the scalar host solver otherwise."""
+    from . import native
+    rows = np.asarray(rows, np.int64)
+    if len(rows) and native.available():
+        return native.solve_batch(U, B, rows, np.asarray(qinv, np.int64),
+                                  prime)
+    out = []
+    x = np.zeros(U.m, dtype=np.int64)
+    for r in rows:
+        pattern, x = sparse_triangular_solve(U, B, int(r), qinv, x)
+        live = np.sort(pattern[x[pattern] != 0])
+        out.append((live.astype(np.int32), x[live].astype(np.int32)))
+    return out
+
+
+def estimate_density(A: CSR, p: np.ndarray, n: int, U: CSR,
+                     qinv: np.ndarray, R: int = 100,
+                     seed: int = 1) -> float:
+    """Average residue density of R non-pivotal rows drawn from the
+    SHA-256 PRNG and solved against U (spasm_schur.c:11-44)."""
+    if n == 0 or A.m == U.n:
+        return 0.0
+    gen = PRNG.from_u64(A.prime, seed, 0xDE)
+    sample = p[gen.uniform_array(R, n)]
+    nnz = 0
+    for cols, _ in solve_rows(U, A, sample, qinv, A.prime):
+        nnz += int(np.count_nonzero(qinv[cols] < 0))
+    return nnz / (A.m - U.n) / R
+
+
+def _block_rows_dense(A: CSR, rows: np.ndarray) -> np.ndarray:
+    """Densify the given rows of A into a (len(rows), m) int32 block."""
+    X = np.zeros((len(rows), A.m), dtype=np.int32)
+    for k, i in enumerate(rows):
+        cols, vals = A.row(int(i))
+        X[k, cols] = vals
+    return X
+
+
+def _block_rows_device(A: CSR, rows: np.ndarray, Bp: int, mp: int,
+                       device) -> torch.Tensor:
+    """Densify the given rows of A on `device`: only the block's sparse
+    entries cross to it, then one scatter fills the (Bp, mp) block."""
+    rows = np.asarray(rows, np.int64)
+    starts = A.indptr[rows]
+    lens = (A.indptr[rows + 1] - starts).astype(np.int64)
+    gather = _concat_ranges(starts, lens)
+    Xd = torch.zeros((Bp, mp), dtype=torch.int32, device=device)
+    if gather.size:
+        rowrep = np.repeat(np.arange(len(rows), dtype=np.int64), lens)
+        Xd[torch.as_tensor(rowrep, device=device),
+           torch.as_tensor(A.indices[gather].astype(np.int64),
+                           device=device)] = torch.as_tensor(
+            A.data[gather].astype(np.int32), device=device)
+    return Xd
+
+
+def _origins(rows, p_in) -> np.ndarray:
+    rows = np.asarray(rows, np.int64)
+    return np.asarray(p_in, np.int64)[rows] if p_in is not None else rows
+
+
+def schur_dense_block(A: CSR, rows: np.ndarray, p_in: Optional[np.ndarray],
+                      qinv: np.ndarray, eliminator, L=None,
+                      U_csr: Optional[CSR] = None
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Dense Schur complement of the given rows w.r.t. U, on the host.
+
+    Returns (S, q, p_out): S (len(rows), |q|) on the non-pivotal columns
+    q; p_out maps block rows to original row ids.  Elimination
+    coefficients of every row go to the L builder (the caller filters).
+    (reference: spasm_schur_dense, spasm_schur.c:257-333)"""
+    m = A.m
+    q = np.nonzero(qinv < 0)[0]
+    has_pivots = bool(np.any(qinv >= 0))
+    if has_pivots and eliminator is not None and eliminator.nrows > 0 \
+            and (U_csr is None or len(rows) * m >= _DEVICE_THRESHOLD):
+        X = eliminator.eliminate(_block_rows_dense(A, rows))
+    elif has_pivots:
+        if U_csr is None:
+            raise ValueError("schur_dense_block requires an eliminator or "
+                             "a U snapshot when U is nonempty")
+        X = np.zeros((len(rows), m), dtype=np.int32)
+        for k, (cols, vals) in enumerate(
+                solve_rows(U_csr, A, rows, qinv, A.prime)):
+            X[k, cols] = vals
+    else:
+        X = _block_rows_dense(A, rows)
+    p_out = _origins(rows, p_in)
+    if L is not None:
+        piv_cols = np.nonzero(qinv >= 0)[0]
+        C = X[:, piv_cols]
+        r, c = np.nonzero(C)
+        if r.size:
+            L.add_batch(p_out[r], qinv[piv_cols[c]], C[r, c])
+    return X[:, q], q, p_out
+
+
+@annotate("schur_block")
+def schur_dense_block_device(A: CSR, rows: np.ndarray,
+                             p_in: Optional[np.ndarray], qinv: np.ndarray,
+                             eliminator, want_L: bool = False):
+    """Dense Schur block of the dense finishers, left on the
+    eliminator's device.  Returns (Xd, q, p_out): Xd (len(rows), |q|) on
+    the non-pivotal columns q.
+
+    want_L additionally returns (Cd, piv_cols): the elimination
+    coefficients parked on the pivotal columns, as a device block
+    (Bp, cpad) over the global pivot columns piv_cols; Xd is then
+    (len(rows), qpad) with zero pad columns."""
+    dev = eliminator.device
+    q = np.nonzero(qinv < 0)[0]
+    B = len(rows)
+    mp = _size_bucket(A.m + 1, 64)
+    Xd = _block_rows_device(A, rows, _size_bucket(B, 8), mp, dev)
+    if eliminator.nrows > 0:
+        Xd = eliminator.eliminate_device(Xd)
+    p_out = _origins(rows, p_in)
+    if want_L:
+        # the dead column mp - 1 is where padded gathers point: keep it 0
+        Xd[:, mp - 1] = 0
+        piv_cols = np.nonzero(qinv >= 0)[0]
+        csel = np.full(_size_bucket(piv_cols.size + 1, 64), mp - 1,
+                       np.int64)
+        csel[:piv_cols.size] = piv_cols
+        Cd = Xd[:, torch.as_tensor(csel, device=dev)]
+        qsel = np.full(_size_bucket(q.size + 1, 64), mp - 1, np.int64)
+        qsel[:q.size] = q
+        return (Xd[:B][:, torch.as_tensor(qsel, device=dev)], q, p_out,
+                (Cd, piv_cols))
+    return Xd[:B][:, torch.as_tensor(q, device=dev)], q, p_out
+
+
+def schur_dense_randomized(A: CSR, p: np.ndarray, n: int, U: CSR,
+                           qinv: np.ndarray, N: int, w: int,
+                           eliminator=None, seed_base: int = 0,
+                           return_device: bool = False):
+    """N random linear combinations of the Schur complement rows:
+    w > 0: of w randomly chosen rows (first coefficient 1); w <= 0: of
+    all n rows.  Returns (S, q) like schur_dense_block; return_device
+    leaves the block on the eliminator's device.
+    (reference: spasm_schur_dense_randomized, spasm_schur.c:346-413)"""
+    m = A.m
+    prime = A.prime
+    q = np.nonzero(qinv < 0)[0]
+    X = np.zeros((N, m), dtype=np.int64)
+    F = A.field
+    for k in range(N):
+        gen = PRNG.from_u64(prime, k + seed_base, 0)
+        y = X[k]
+        if w <= 0:
+            _combine_rows(A, p[:n], gen.zzp_array(n), y, F)
+        else:
+            # row choice and coefficients from the same per-combination
+            # PRNG stream
+            sel = gen.uniform_array(w, n)
+            coeffs = np.empty(w, np.int32)
+            coeffs[0] = 1
+            if w > 1:
+                coeffs[1:] = gen.zzp_array(w - 1)
+            _combine_rows(A, p[sel], coeffs, y, F)
+    Xi = F.narray(X).astype(np.int32)
+    if eliminator is not None and eliminator.nrows > 0 \
+            and (return_device or N * m >= _DEVICE_THRESHOLD):
+        Xd = eliminator.eliminate_device(eliminator.pad_block(Xi))
+        if return_device:
+            return Xd[:N][:, torch.as_tensor(q, device=Xd.device)], q
+        Xi = Xd[:N, :m].cpu().numpy()
+    elif U.n:
+        from . import native
+        if native.available():
+            Bm = CSR.from_dense(Xi, prime)
+            out = np.zeros_like(Xi)
+            for k, (cols, vals) in enumerate(
+                    solve_rows(U, Bm, np.arange(N), qinv, prime)):
+                out[k, cols] = vals
+            Xi = out
+        else:
+            Xi = _eliminate_scalar(Xi, U, qinv)
+    if return_device:
+        return torch.as_tensor(Xi[:, q], device=eliminator.device), q
+    return Xi[:, q], q
+
+
+def _combine_rows(A: CSR, rows, coeffs, y: np.ndarray, F):
+    """y += sum coeffs[k] * A[rows[k]] (int64 accumulator, term-reduced)."""
+    for c, i in zip(coeffs, rows):
+        cols, vals = A.row(int(i))
+        if cols.size == 0 or c == 0:
+            continue
+        y[cols] = F.narray(y[cols] + np.int64(c) * vals.astype(np.int64))
+
+
+def _eliminate_scalar(X: np.ndarray, U: CSR, qinv: np.ndarray) -> np.ndarray:
+    """Host fallback: eliminate dense rows against U's pivots in order."""
+    F = U.field
+    upiv = np.full(U.n, -1, np.int64)
+    cols_of = np.nonzero(qinv >= 0)[0]
+    upiv[qinv[cols_of]] = cols_of
+    X = X.astype(np.int64)
+    for i in range(U.n):
+        j = upiv[i]
+        coeff = X[:, j].copy()
+        live = np.nonzero(coeff)[0]
+        if live.size == 0:
+            continue
+        cols, vals = U.row(i)
+        X[np.ix_(live, cols)] = F.narray(
+            X[np.ix_(live, cols)]
+            - coeff[live, None] * vals.astype(np.int64)[None, :])
+        X[live, j] = coeff[live]
+    return F.narray(X).astype(np.int32)

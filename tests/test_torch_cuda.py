@@ -14,9 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_checks import deficient_panel, random_waves
+from chip_checks import deficient_panel, panel_block, random_waves
 from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
+from spasm_tpu_torch.certificate import factorization_verify
+from spasm_tpu_torch.dense.elim import dense_lu_device, dense_rref_device
 from spasm_tpu_torch.dense.modp import matmul_digits
+from spasm_tpu_torch.dense.panel import _panel_plain, panel_pivots
 from spasm_tpu_torch.dense.rowrref import (TILE_W, _row_sweep_plain,
                                            _row_sweep_tiles_plain, row_sweep,
                                            row_sweep_tiles)
@@ -81,6 +84,63 @@ def test_b3_matches_plain(dev, M, p):
     torch.cuda.synchronize()
     assert torch.equal(piv, piv_want)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rref", [True, False])
+@pytest.mark.parametrize("n", [1024, 4608])
+@pytest.mark.parametrize("p", [3, 42013, 65269])
+def test_b4_matches_plain(dev, n, p, rref):
+    X, is_piv = panel_block(np.random.default_rng([n, p]), n, p)
+    Xd = torch.from_numpy(X).to(dev)
+    P0 = Xd[:, 64:128]                    # through the block's row stride
+    ip = torch.from_numpy(is_piv).to(dev)
+    want = _panel_plain(P0, ip, p, 64, rref)
+    key = "B4 rref" if rref else "B4 lu"
+    before = _cuda.launches[key]
+    got = panel_pivots(P0, ip, p, 64, rref)
+    torch.cuda.synchronize()
+    assert _cuda.launches[key] - before == 1
+    assert len(got) == len(want) == (4 if rref else 5)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(Xd.cpu(), torch.from_numpy(X))   # input untouched
+
+
+@pytest.mark.parametrize("shape", [(300, 1000), (1100, 1500)])
+def test_dense_elim_card_matches_cpu(dev, shape):
+    """The column-sweep RREF and LU (B4 + digit matmuls) on the card
+    against the same code on the CPU (plain B4)."""
+    p = 42013
+    rng = np.random.default_rng(list(shape))
+    n, m = shape
+    X = (rng.integers(0, p, (n, 200)) @ rng.integers(0, p, (200, m))) % p
+    X = torch.from_numpy(np.where(X > p // 2, X - p, X).astype(np.int32))
+    R, pc = dense_rref_device(X, p)
+    Rd, pcd = dense_rref_device(X.to(dev), p)
+    assert np.array_equal(pc, pcd) and pc.size == 200
+    assert torch.equal(Rd.cpu(), R)
+    want = dense_lu_device(X, p)
+    got = dense_lu_device(X.to(dev), p)
+    for a, b in zip(want[:2], got[:2]):
+        assert np.array_equal(a, b)
+    for a, b in zip(want[2:], got[2:]):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("name", ["mat364.sms", "trefethen_2000.sms"])
+def test_complete_pluq_card_matches_cpu(dev, name):
+    A, _ = sio.load_csr(MATRIX / name, 42013)
+    opts = EchelonizeOptions(complete=True)
+    want = echelonize(A, opts, device="cpu")
+    got = echelonize(A, opts, device="cuda")
+    assert got.r == want.r
+    assert np.array_equal(got.qinv, want.qinv)
+    assert np.array_equal(got.p, want.p)
+    for a, b in ((got.U, want.U), (got.L, want.L)):
+        assert np.array_equal(a.indptr, b.indptr)
+        assert np.array_equal(a.indices[:a.nnz], b.indices[:b.nnz])
+        assert np.array_equal(a.data[:a.nnz], b.data[:b.nnz])
+    assert factorization_verify(A, got, 42)
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 3), (17, 40, 9), (4096, 4096, 2048),

@@ -78,17 +78,33 @@ def test_tall_input_lowrank_and_completion(monkeypatch, caplog):
     _same_factor(jechelonize(JCSR.from_dense(D, p), JOpts(**DEVICE_MIN0)), t)
 
 
-@pytest.mark.parametrize("opts,match", [
-    (dict(L=True), "L-mode"),
-    (dict(complete=True), "L-mode"),
-    (dict(checkpoint_file="ck.npz"), "checkpoints"),
-    (dict(), "Schur rounds"),                 # below device_dense_min
-    (dict(enable_dense=False, min_pivot_proportion=1.0), "GPLU"),
+@pytest.mark.parametrize("name,opts,match", [
+    ("mat364.sms", dict(checkpoint_file="ck.npz"), "checkpoints"),
+    ("dm.sms", dict(), "Schur rounds"),       # sparse Schur complement
+    ("mat364.sms", dict(enable_dense=False, min_pivot_proportion=1.0),
+     "GPLU"),
 ])
-def test_outside_the_slice_raises(opts, match):
-    A, _ = sio.load_csr(MATRIX / "mat364.sms", 42013)
+def test_outside_the_slice_raises(name, opts, match):
+    A, _ = sio.load_csr(MATRIX / name, 42013)
     with pytest.raises(NotImplementedError, match=match):
         echelonize(A, EchelonizeOptions(**opts), device="cpu")
+
+
+@pytest.mark.parametrize("opts", [dict(L=True), dict(complete=True)])
+def test_l_mode_matches_jax(opts):
+    """L-mode on mat364: the host L block of finish_dense; rank, qinv, U,
+    L and p bit-equal to the JAX package's."""
+    p = 42013
+    J, _ = jsio.load_csr(MATRIX / "mat364.sms", p)
+    A, _ = sio.load_csr(MATRIX / "mat364.sms", p)
+    j = jechelonize(J, JOpts(**opts))
+    t = echelonize(A, EchelonizeOptions(**opts), device="cpu")
+    _same_factor(j, t)
+    assert np.array_equal(t.p, j.p) and t.complete == j.complete
+    Lj, Lt = j.L, t.L
+    assert np.array_equal(Lt.indptr, Lj.indptr)
+    assert np.array_equal(Lt.indices[:Lt.nnz], Lj.indices[:Lj.nnz])
+    assert np.array_equal(Lt.data[:Lt.nnz], Lj.data[:Lj.nnz])
 
 
 def test_large_prime_raises():
@@ -109,11 +125,29 @@ def test_rank_cli(name, want, capsys, monkeypatch):
     assert capsys.readouterr().out.strip() == want
 
 
-@pytest.mark.parametrize("flag", ["--device", "--dense-block-size",
-                                  "--min-rank-ratio"])
+@pytest.mark.parametrize("flag", ["--device"])
 def test_rank_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit):
         rank_cli.main([flag, "1", "--matrix", str(MATRIX / "u1.sms")])
+
+
+@pytest.mark.parametrize("flag,value,field", [
+    ("--dense-block-size", "123", "dense_block_size"),
+    ("--min-rank-ratio", "0.25", "low_rank_ratio")])
+def test_rank_cli_dense_flags_reach_the_options(flag, value, field,
+                                                monkeypatch, capsys):
+    seen = {}
+
+    def spy(A, opts):
+        seen["opts"] = opts
+        return echelonize(A, opts, device="cpu")
+
+    monkeypatch.setattr(rank_cli, "echelonize", spy)
+    assert rank_cli.main([flag, value, "--matrix",
+                          str(MATRIX / "mat364.sms")]) == 0
+    assert capsys.readouterr().out.strip() == "364"
+    assert getattr(seen["opts"], field) == type(
+        getattr(EchelonizeOptions(), field))(value)
 
 
 @pytest.mark.parametrize("name", ["mat364.sms", "singular2.sms"])
