@@ -53,6 +53,40 @@ def deficient_panel(rng: np.random.Generator, nb: int, M: int, r: int,
     return X.astype(np.int32)
 
 
+def b3_panel(rng: np.random.Generator, case: str, M: int,
+             p: int) -> np.ndarray:
+    """(64, M) int32 input of the tiled sweep B3, by case:
+      full                  dense balanced, full rank in the first tile;
+      rank40                `deficient_panel` of rank <= 40;
+      staircase             row t (t < M / 512) nonzero from tile t on,
+                            the other rows zero: one pivot per tile;
+      zero                  all zero;
+      empty_lead            rank <= 40 with the first 2 tiles and 100
+                            columns zero;
+      row_first_tile_empty  rank <= 40, row 3 zero on the first tile but
+                            for one entry in the second."""
+    tw = 512
+    if case == "full":
+        return balanced(rng, (64, M), p).astype(np.int32)
+    if case == "rank40":
+        return deficient_panel(rng, 64, M, 40, p)
+    if case == "staircase":
+        X = np.zeros((64, M), np.int64)
+        for t in range(min(M // tw, 64)):
+            X[t, t * tw + 7:] = balanced(rng, M - t * tw - 7, p)
+        return X.astype(np.int32)
+    if case == "zero":
+        return np.zeros((64, M), np.int32)
+    if case == "empty_lead":
+        return deficient_panel(rng, 64, M, 40, p, empty_cols=2 * tw + 100)
+    if case == "row_first_tile_empty":
+        X = deficient_panel(rng, 64, M, 40, p)
+        X[3, :tw] = 0
+        X[3, tw + 5] = 9 % p - p * (9 % p > p // 2)
+        return X
+    raise ValueError(case)
+
+
 def panel_block(rng: np.random.Generator, n: int, p: int):
     """(n, 192) balanced int32 block whose columns 64..127 are the panel
     of kernel B4 (read through the block's row stride): 60 % zeros, every

@@ -8,18 +8,22 @@ Phases, each fatal on failure (no failure is caught):
   2. build: compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
      at once) and the host native library (g++) from this checkout, and
      prints the seconds taken;
-  3. kernels: B1 (substitution), B2 and B3 (row sweeps) and B4 (the panel
-     kernel, RREF and LU mode) against their plain torch versions on the
+  3. kernels: B1 (substitution), B2 and B3 (row sweeps; B3 on a rank-40
+     and on a full-rank panel) and B4 (the panel kernel, RREF and LU mode,
+     the variant its n selects) against their plain torch versions on the
      card at the main paths' shapes, bit-equal, with both times and each
      kernel's bound (bytes over 3.35 TB/s or operations over 67 T/s,
-     whichever is larger); matmul_digits on the card against the CPU;
+     whichever is larger); B4's phase split (its stamped build: preamble,
+     discovery, minor steps, inverse, Vinv) in both variants, each also
+     bit-equal; matmul_digits on the card against the CPU;
   4. the rank path, with the launch counts zeroed first: one tests/Matrix
      fixture (M = 2048, so B2 sweeps), bit-equal to the port's own CPU run;
      the `rank` CLI on mk12.b4; mk12.b4 and mk13.b5 (matching-complex
      boundary maps, oriented as the rank tool does) through `echelonize`
-     on the card, cold and warm, held to their published ranks; the
-     finisher's stage profile of a third mk13.b5 run.  B1, B2 and B3 must
-     have launched in this phase;
+     on the card, cold and warm, held to their published ranks, with the
+     histogram of B3's live tiles per sweep over one run (a counter on the
+     card); the finisher's stage profile of a third mk13.b5 run.  B1, B2
+     and B3 must have launched in this phase;
   5. the dense finishers, with the launch counts zeroed again:
      trefethen_2000 with default options (round 0 leaves a dense Schur
      complement: finish_dense, RREF) and its complete PLUQ, each bit-equal
@@ -28,7 +32,8 @@ Phases, each fatal on failure (no failure is caught):
      cold and warm, rank 15997, with the finish_dense stage clocks of a
      third run, then L and U materialized (timed apart) and verified
      (factorization_verify); the same matrix's rank through finish_dense
-     (device_dense_width=0).  B4 must have launched in both modes;
+     (device_dense_width=0).  B4 must have launched in both modes, and
+     the variant each main-path panel height takes is printed;
   6. a JSON line of the kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -86,10 +91,13 @@ def build_phase() -> None:
     kernel = None                       # ptxas -v: registers, shared memory
     for line in _cuda.build_log.splitlines():
         if "entry function" in line:
-            kernel = next(k for k in ("subst_wave", "sweep_find",
-                                      "sweep_update", "tile_pass",
-                                      "tile_compose", "panel_kernel")
-                          if k in line)
+            mangled = line.split("'")[1]
+            kernel = next((k for k in ("subst_wave", "sweep_find",
+                                       "sweep_update", "tile_sweep",
+                                       "panel_cluster", "panel_coop")
+                           if k in mangled), mangled)
+            if "ILb1E" in mangled:      # the template with phase stamps
+                kernel += " (stamped)"
         elif kernel and "Used" in line:
             log(f"  {kernel}: {line.split(':', 1)[1].strip()}")
 
@@ -146,10 +154,37 @@ def _b4_ops(P0, is_piv, rref: bool) -> int:
     return ops
 
 
+B4_PHASES = ("preamble copy", "discovery", "minor steps",
+             "Fermat inverse + Z", "Vinv")
+
+
+def b4_phase_split(P0, ip, rref: bool, variant: str, want, mode: str):
+    """Prints B4's phase split on this panel (the stamped build of the
+    kernel, lead block's clock64 and %globaltimer), after holding its
+    outputs to the plain version's."""
+    from spasm_tpu_torch.dense.panel import panel_phase_stamps
+    stamps = None
+    for _ in range(3):                  # the last of three calls
+        got, stamps = panel_phase_stamps(P0, ip, P, rref, variant)
+    torch.cuda.synchronize()
+    if max(_max_err(g, w) for g, w in zip(got, want)):
+        sys.exit(f"chip_smoke: B4 {variant} (stamped) disagrees with its "
+                 f"plain version")
+    st = stamps.cpu().tolist()
+    cyc = [st[k + 1] - st[k] for k in range(5)]
+    us = [(st[7 + k] - st[6 + k]) / 1e3 for k in range(5)]
+    log(f"  B4 ({P0.shape[0]}, 64) {mode} {variant} phase split, lead "
+        f"block: " + ", ".join(f"{name} {c} cycles / {u:.3f} us"
+                               for name, c, u in zip(B4_PHASES, cyc, us))
+        + f"; total {(st[11] - st[6]) / 1e3:.3f} us")
+
+
 def kernel_phase() -> dict:
-    from chip_checks import cuda_ms, deficient_panel, panel_block, random_waves
+    from chip_checks import (b3_panel, cuda_ms, deficient_panel, panel_block,
+                             random_waves)
     from spasm_tpu_torch.dense.modp import matmul_digits
-    from spasm_tpu_torch.dense.panel import _panel_plain, panel_pivots
+    from spasm_tpu_torch.dense.panel import (_panel_plain, panel_pivots,
+                                             panel_variant)
     from spasm_tpu_torch.dense.rowrref import (_row_sweep_plain,
                                                _row_sweep_tiles_plain,
                                                row_sweep, row_sweep_tiles)
@@ -184,9 +219,10 @@ def kernel_phase() -> dict:
         f"({rec['bound_by']}), bit-equal")
     del R0, got, want, work
 
-    def sweeps(name, kern, plain, M, empty, replaces):
-        P0 = torch.from_numpy(deficient_panel(rng, 64, M, 40, P,
-                                              empty_cols=empty)).to(dev)
+    def sweeps(name, kern, plain, M, empty, replaces, full=False):
+        X = (b3_panel(rng, "full", M, P) if full else
+             deficient_panel(rng, 64, M, 40, P, empty_cols=empty))
+        P0 = torch.from_numpy(X).to(dev)
         got, want = P0.clone(), P0.clone()
         piv, piv_w = kern(got, P), plain(want, P)
         # the panel read and written once; each pivot's Jordan step
@@ -198,9 +234,10 @@ def kernel_phase() -> dict:
         work = P0.clone()
         ms = cuda_ms(lambda: kern(work.copy_(P0), P), 10)
         plain_ms = cuda_ms(lambda: plain(work.copy_(P0), P), 2)
-        log(f"{name} (64, {M}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-            f"(each with one panel copy), bound {rec['bound_ms']:.5f} ms "
-            f"({rec['bound_by']}), {npiv} pivots, bit-equal")
+        log(f"{name} (64, {M}){' full rank' if full else ''}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms (each with one panel "
+            f"copy), bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
+            f"{npiv} pivots, bit-equal")
         return dict(rec, ms=ms, plain_ms=plain_ms)
 
     out["B2"] = sweeps("B2 sweep_find+sweep_update", row_sweep,
@@ -208,9 +245,11 @@ def kernel_phase() -> dict:
                        "spasm_tpu/dense/rowrref.py:55")
     sweeps("B2 sweep_find+sweep_update", row_sweep, _row_sweep_plain,
            22528, 3000, "spasm_tpu/dense/rowrref.py:55")
-    out["B3"] = sweeps("B3 tile_pass+tile_compose", row_sweep_tiles,
+    out["B3"] = sweeps("B3 tile_sweep", row_sweep_tiles,
                        _row_sweep_tiles_plain, 22528, 3000,
                        "spasm_tpu/dense/rowrref.py:126")
+    sweeps("B3 tile_sweep", row_sweep_tiles, _row_sweep_tiles_plain, 22528,
+           0, "spasm_tpu/dense/rowrref.py:126", full=True)
 
     # B4 at the dense finishers' panel heights: 4608 (PLUQ16k blocks, LU)
     # and 1024 (trefethen_2000 blocks, RREF and LU)
@@ -225,15 +264,17 @@ def kernel_phase() -> dict:
             want = _panel_plain(P0, ip, P, 64, rref)
             nbytes = (P0.numel() * 4 + 2 * n + 64 * 5
                       + 64 * 64 * 4 * (1 if rref else 2))
-            rec = _record("B4 panel_kernel", "spasm_tpu_torch/csrc/panel.cu",
+            rec = _record("B4 panel_cluster", "spasm_tpu_torch/csrc/panel.cu",
                           "spasm_tpu/dense/sweep_pallas.py:77", list(got),
                           list(want), nbytes, _b4_ops(P0, ip, rref))
             ms = cuda_ms(lambda: panel_pivots(P0, ip, P, 64, rref), 20)
             plain_ms = cuda_ms(lambda: _panel_plain(P0, ip, P, 64, rref), 2)
-            log(f"B4 ({n}, 64) {mode}: kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.5f} ms "
-                f"({rec['bound_by']}), {int(got[1].sum())} pivots, "
-                f"bit-equal")
+            log(f"B4 ({n}, 64) {mode}, {panel_variant(n)} variant: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
+                f"{int(got[1].sum())} pivots, bit-equal")
+            for variant in ("cluster", "cooperative"):
+                b4_phase_split(P0, ip, rref, variant, want, mode)
             if n == 4608 and not rref:     # the PLUQ16k shape
                 out["B4"] = dict(rec, ms=ms, plain_ms=plain_ms)
 
@@ -290,6 +331,7 @@ def _launched(counts: dict, keys, what: str) -> None:
 
 def rank_path_phase() -> dict:
     from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
+    from spasm_tpu_torch.dense.rowrref import live_tile_histogram
     from spasm_tpu_torch.gen import matching_complex_boundary
     fixture = HERE / "tests" / "Matrix" / "trefethen_500.sms"
     A, _ = sio.load_csr(fixture, P)
@@ -326,9 +368,14 @@ def rank_path_phase() -> dict:
         sys.exit("chip_smoke: rank CLI failed:\n" + cli.stderr[-3000:])
     log(f"rank CLI on mk12.b4 (stdin): {want}, process wall "
         f"{time.time() - t0:.1f} s")
+    hist = live_tile_histogram(torch.device("cuda"))
     for tag, (_, _, want) in MK.items():
         for run in ("cold", "warm"):
+            hist.zero_()
             _timed_rank(mats[tag], want, f"{tag} {run}")
+        h = hist.cpu().tolist()
+        log(f"{tag}: B3 sweeps by live tiles (one run): "
+            + json.dumps({t: c for t, c in enumerate(h) if c}))
     os.environ["SPASM_PROFILE_FINISH"] = "1"
     fact = _timed_rank(mats["mk13.b5"], MK["mk13.b5"][2],
                        "mk13.b5 profiled (stage clocks synchronize)")
@@ -342,6 +389,7 @@ def rank_path_phase() -> dict:
 
 def dense_finisher_phase() -> dict:
     from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
+    from spasm_tpu_torch.dense.panel import panel_variant
     from spasm_tpu_torch.certificate import factorization_verify
     from spasm_tpu_torch.gen import synthetic_sparse
     A, _ = sio.load_csr(HERE / "tests" / "Matrix" / "trefethen_2000.sms", P)
@@ -399,7 +447,12 @@ def dense_finisher_phase() -> dict:
                 "device_dense_width=0)",
                 EchelonizeOptions(device_dense_width=0))
     counts = dict(_cuda.launches)
-    _launched(counts, ("B4 rref", "B4 lu"), "the dense finishers")
+    _launched(counts, ("B4 rref", "B4 lu", "B4 cluster"),
+              "the dense finishers")
+    log("B4 variants on the main path: " + ", ".join(
+        f"n = {n} takes {panel_variant(n)}" for n in (1024, 1536, 4608))
+        + f"; launches by variant {counts['B4 cluster']} cluster, "
+        f"{counts['B4 cooperative']} cooperative")
     return counts
 
 

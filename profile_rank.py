@@ -35,9 +35,9 @@ from torch.profiler import ProfilerActivity, profile
 
 REPS = 3
 GROUPS = (("B1 subst_wave", ("subst_wave",)),
-          ("B4 panel_kernel", ("panel_kernel",)),
+          ("B4 panel_cluster/panel_coop", ("panel_cluster", "panel_coop")),
           ("B2 sweep_find+sweep_update", ("sweep_find", "sweep_update")),
-          ("B3 tile_pass+tile_compose", ("tile_pass", "tile_compose")),
+          ("B3 tile_sweep", ("tile_sweep",)),
           ("int8 GEMM (torch._int_mm)", ("gemm", "cutlass", "igemm")),
           ("index/gather/scatter", ("index", "scatter", "gather")),
           ("copy/fill", ("copy", "fill", "memcpy", "memset", "Memcpy",

@@ -11,7 +11,8 @@ entry returns cudaGetLastError(), which `check` turns into an exception.
 `launches` counts the CUDA kernel launches each wrapper issued: B1 the
 substitution waves (dense/subst.py), B2 and B3 the row sweeps
 (dense/rowrref.py), B4 the panel steps of the column-sweep elimination
-(dense/panel.py), counted apart in RREF and LU mode.  Nothing here runs
+(dense/panel.py), counted apart in RREF and LU mode and, again, by
+variant (cluster or cooperative).  Nothing here runs
 at import.
 """
 from __future__ import annotations
@@ -31,7 +32,8 @@ _HEADERS = ("modp.cuh",)
 BUILD_DIR = _HERE.parent / "build" / "spasm_tpu_torch"
 
 launches: Dict[str, int] = {"B1": 0, "B2": 0, "B3": 0, "B4 rref": 0,
-                             "B4 lu": 0}
+                             "B4 lu": 0, "B4 cluster": 0,
+                             "B4 cooperative": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # set when this process compiled
@@ -106,10 +108,16 @@ def lib() -> ctypes.CDLL:
     L.spasm_row_sweep.restype = ci
     L.spasm_row_sweep.argtypes = [vp, ci, ci, vp, vp, ci, vp]
     L.spasm_row_sweep_tiles.restype = ci
-    L.spasm_row_sweep_tiles.argtypes = [vp, ci, vp, ci, vp]
+    L.spasm_row_sweep_tiles.argtypes = [vp, ci, vp, vp, ci, vp]
+    L.spasm_tile_state_size.restype = ci
+    L.spasm_tile_state_size.argtypes = []
     L.spasm_panel.restype = ci
     L.spasm_panel.argtypes = [vp, ctypes.c_longlong, ci, vp, vp, vp, vp, vp,
-                              vp, vp, vp, ci, ci, vp]
+                              vp, vp, vp, ci, ci, ci, vp]
+    L.spasm_panel_stamped.restype = ci
+    L.spasm_panel_stamped.argtypes = L.spasm_panel.argtypes[:-1] + [vp, vp]
+    L.spasm_panel_cluster_rows.restype = ci
+    L.spasm_panel_cluster_rows.argtypes = []
     L.spasm_tile_width.restype = ci
     L.spasm_tile_width.argtypes = []
     _lib = L

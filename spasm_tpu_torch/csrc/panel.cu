@@ -16,28 +16,44 @@
 //      or the rows below the diagonal (LU, forward elimination);
 //   4. one batched Fermat inverse of the diagonal: Z = W^-1 (RREF) or
 //      Zlu = D^-1 Lambda^-1 (LU);
-//   5. LU: Vinv, the inverse of the unit-upper D^-1 Omega, by 64 backward
-//      row steps.
-// Outputs lrows, lhas, is_piv', Z (and Vinv) are unique, so they equal
-// the plain torch version (dense/panel.py) bit for bit.
+//   5. LU: Vinv, the inverse of the unit-upper D^-1 Omega.
+// Outputs lrows, lhas, is_piv', Z (and Vinv) are unique, so any exact
+// route gives the plain torch version's integers (dense/panel.py).
 //
-// Bound on this card: 64 + 64 (+ 64) dependent steps, not bytes — the
-// byte bound at (64, 4608) is 1.18 MB / 3.35 TB/s ~ 0.35 us.  Design: ONE
-// cooperative launch (cudaLaunchCooperativeKernel) over at most
-// ceil(n / 256) blocks of 256 threads, a thread per row (grid-stride
-// beyond).  The working copy of the panel is scratch: transposed
-// (64, n) in device memory so a step's column reads are coalesced; at
-// n = 4608 it is 1.18 MB and stays in L2 (and each SM's share in L1).
-// Step t: each thread checks its rows, a warp min + shared atomicMin +
-// global atomicMin per block give the first available row, one
-// grid.sync(), then every thread reads the pivot row from L2 (__ldcg:
-// another SM wrote it) and updates its own available rows with a
-// nonzero in column t, columns > t only.  Rows already pivotal and rows
-// with a zero there are skipped (the TPU scaled them by v for nothing:
-// only zero patterns of non-pivotal rows matter).  One grid.sync per
-// step, since a row is written only by its owner and read by others only
-// after it became the pivot.  Block 0 then runs phases 2-5 alone in
-// 33 KB of shared memory: the 64 x 128 [W | I] with 256 threads.
+// Bound on this card: 64 + 64 (+ 64) dependent steps, not bytes (the
+// panel at (4608, 64) is 1.18 MB: 0.35 us at 3.35 TB/s).  The first
+// version, one cooperative launch with the working panel in L2, paid a
+// grid barrier and two L2 round trips per discovery step and ran the
+// minor on 256 threads of one block: 0.78-0.83 ms whatever n and mode.
+// This design, one launch either way:
+//   * cluster variant (n <= kCluster * kRowsMax = 24576): one cluster of
+//     kCluster = 16 blocks (non-portable size) keeps the working panel in
+//     distributed shared memory as int16 (every balanced residue of
+//     p <= 65279 fits), transposed (64, R) per block so a step's column
+//     scan is conflict-free; it is loaded coalesced (a warp reads a
+//     row's 256 B).  Step t: each block finds its first available row
+//     and sends it (index and values, 144 B) to all 16 blocks with TMA
+//     bulk copies that complete on the receivers' mbarriers; each block
+//     then takes the minimum row and its values from its own shared
+//     memory and updates its rows, up to 8 threads per row.  No grid or
+//     cluster barrier and no L2 round trip per step;
+//   * cooperative variant (taller panels): the first version's discovery
+//     (a thread per row, one grid barrier per step, panel in L2);
+//   * the minor (both variants, one block of 1024 threads): the 64 steps
+//     touch only the 65 live columns [t, t + 64] of [W | I] (columns left
+//     of t hold just their diagonal, columns right of 64 + t just the
+//     identity, which are scaled apart); row t and column t of a step
+//     come from a snapshot its predecessor wrote, so a step is one block
+//     barrier; the diagonal's inverses run on 64 threads; Vinv comes in
+//     16 x 16 blocks: the diagonal ones by backward elimination, all four
+//     at once (15 barriers), the others by block back substitution (6).
+// What bounds it now (chip_smoke.py's phase split): the discovery's 64
+// exchanges (~1.8 us each with little work) plus the row updates, and
+// the minor's 64 x 65 element updates per step, bound by the instruction
+// rate of one SM.
+// Reductions use spasm::Fp (integer Barrett, FP64 for int64 sums).  A
+// template flag adds clock64 / globaltimer stamps at the phase borders,
+// read by `spasm_panel_stamped` (chip_smoke.py's phase split).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -50,31 +66,392 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kNB = 64;
-constexpr int kThreads = 256;
 constexpr int kW = 2 * kNB;             // [W | I]
 constexpr int kLd = kW + 1;             // padded: column reads hit all banks
+constexpr int kCluster = 16;            // blocks per cluster
+constexpr int kThreads = 1024;          // both variants
+constexpr int kRowsMax = 1536;          // rows per block of the cluster
+// stamps: start, preamble, discovery, minor steps, inverse and Z, Vinv
+constexpr int kStamps = 6;
 
+template <bool kStamp>
+__device__ __forceinline__ void stamp(long long* out, int k) {
+  if (kStamp && threadIdx.x == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    out[k] = clock64();
+    out[kStamps + k] = static_cast<long long>(ns);
+  }
+}
+
+constexpr int kVB = 16;                 // Vinv's diagonal block size
+
+struct MinorShared {
+  int M[kNB * kLd];
+  int pr[2][kNB + 1];                   // row t of the live columns
+  int g[2][kNB];                        // column t (the multipliers)
+  int d[kNB];
+  int T[3][kVB * kVB];                  // Vinv's off-diagonal sums
+};
+
+// Phases 2-5 on one block of 1024 threads; lr (shared) holds the pivot row
+// per slot, -1 for none.  Step t of [W | I] reads row t and column t as a
+// snapshot (pr, g) that the threads of step t - 1 wrote as they updated
+// those elements, so every other element is read and written by one
+// thread only, and a step costs one barrier.  Thread tid serves the
+// elements (r + 16 m, t + q) of the live columns, r = tid / 64, q = tid %
+// 64, m < 4; threads 0-63 also take column t + 64 of row tid and the
+// dead entries of row tid.
+template <bool kStamp>
+__device__ void minor(const int* __restrict__ P, long long ld, const int* lr,
+                      int* lrows, unsigned char* lhas, int* Z, int* Vinv,
+                      MinorShared& s, const spasm::Fp& F, bool rref,
+                      long long* stamps) {
+  const int tid = threadIdx.x;          // blockDim.x == 1024
+  const int r0 = tid >> 6;
+  const int q = tid & (kNB - 1);
+  if (tid < kNB) {
+    lrows[tid] = lr[tid];
+    lhas[tid] = lr[tid] >= 0;
+  }
+  // the next step's multiplier of row i, from its new value x in column t
+  auto gnext = [&](int i, int t, int x) {
+    if (rref) return i == t ? F.red(x - 1) : x;
+    return i <= t ? 0 : x;
+  };
+  for (int idx = tid; idx < kNB * kW; idx += kThreads) {
+    const int i = idx >> 7;
+    const int c = idx & (kW - 1);
+    int x;
+    if (c < kNB)
+      x = (lr[i] >= 0 && lr[c] >= 0)
+              ? P[static_cast<long long>(lr[i]) * ld + c]
+              : (i == c);
+    else
+      x = (c - kNB == i);
+    s.M[i * kLd + c] = x;
+    if (i == 0 && c <= kNB) s.pr[0][c] = x;
+    if (c == 0) s.g[0][i] = gnext(i, 0, x);
+  }
+  __syncthreads();
+  for (int t = 0; t < kNB; ++t) {
+    const int b = t & 1;
+    const int* pr = s.pr[b];
+    const int* g = s.g[b];
+    int* prn = s.pr[b ^ 1];
+    int* gn = s.g[b ^ 1];
+    const int v = pr[0];
+    const bool more = t + 1 < kNB;
+#pragma unroll
+    for (int m = 0; m <= 4; ++m) {
+      int i, qq;
+      if (m < 4) {
+        i = r0 + 16 * m;
+        qq = q;
+      } else {                          // column t + 64
+        if (tid >= kNB) break;
+        i = tid;
+        qq = kNB;
+      }
+      if (!rref && i <= t) continue;
+      int* e = &s.M[i * kLd + t + qq];
+      const int x = F.red(v * *e - g[i] * pr[qq]);
+      *e = x;
+      if (more) {
+        if (i == t + 1 && qq >= 1) prn[qq - 1] = x;
+        if (qq == 1) gn[i] = gnext(i, t + 1, x);
+      }
+    }
+    if (tid < kNB) {
+      if (!rref && tid <= t && more) gn[tid] = 0;   // rows not updated
+      if (rref && tid < t) {            // dead: left of t, the diagonal
+        int* e = &s.M[tid * kLd + tid];
+        *e = F.red(v * *e);
+      }
+      if (tid > t) {                    // dead: right of 64 + t, identity
+        int* e = &s.M[tid * kLd + kNB + tid];
+        *e = F.red(v * *e);
+        if (tid == t + 1) prn[kNB] = *e;
+      }
+    }
+    __syncthreads();
+  }
+  stamp<kStamp>(stamps, 3);
+  if (tid < kNB) s.d[tid] = F.inverse(s.M[tid * kLd + tid]);
+  __syncthreads();
+  for (int idx = tid; idx < kNB * kNB; idx += kThreads) {
+    const int i = idx >> 6;
+    const int j = idx & (kNB - 1);
+    Z[idx] = F.red(s.d[i] * s.M[i * kLd + kNB + j]);
+    // LU: the left half becomes Vup = D^-1 Omega (unit upper); the right
+    // half, Z being out, starts Vinv as I
+    if (!rref) {
+      s.M[i * kLd + j] = F.red(s.d[i] * s.M[i * kLd + j]);
+      s.M[i * kLd + kNB + j] = i == j;
+    }
+  }
+  __syncthreads();
+  stamp<kStamp>(stamps, 4);
+  if (rref) {
+    stamp<kStamp>(stamps, 5);
+    return;
+  }
+  // Vinv = Vup^-1 (unit upper) in 16 x 16 blocks X_ij, in the right
+  // half (R, I at first).  The diagonal blocks by backward elimination of
+  // [V_ii | I], all four at once: at local step t the multipliers are
+  // V_ii's own column t (the rows below t are already unit rows), so rows
+  // i < t take R[i] -= V[i, t] R[t] on columns >= t; one barrier per step.
+  {
+    const int blk = tid >> 8;           // 4 blocks x 256 threads
+    const int il = (tid >> 4) & (kVB - 1), ql = tid & (kVB - 1);
+    const int i = blk * kVB + il, q = blk * kVB + ql;
+    for (int t = kVB - 1; t > 0; --t) {
+      if (il < t && ql >= t) {
+        const int rt = blk * kVB + t;
+        int* e = &s.M[i * kLd + kNB + q];
+        *e = F.red(*e - s.M[i * kLd + rt] * s.M[rt * kLd + kNB + q]);
+      }
+      __syncthreads();
+    }
+  }
+  // then X_ij = -X_ii sum_{i < k <= j} V_ik X_kj, by distance j - i = 1,
+  // 2, 3 (3, 2, 1 blocks): two barriers per distance
+  for (int dist = 1; dist < kNB / kVB; ++dist) {
+    const int np = kNB / kVB - dist;
+    const int pi = tid >> 8;            // pair: block row pi, column pi + dist
+    const int a = (tid >> 4) & (kVB - 1), c = tid & (kVB - 1);
+    const int bi = pi * kVB, bj = (pi + dist) * kVB;
+    if (pi < np) {
+      long long acc = 0;
+      for (int k = bi + kVB; k < bj + kVB; ++k)
+        acc += static_cast<long long>(s.M[(bi + a) * kLd + k]) *
+               s.M[k * kLd + kNB + bj + c];
+      s.T[pi][a * kVB + c] = F.red64(acc);
+    }
+    __syncthreads();
+    if (pi < np) {
+      long long acc = 0;
+#pragma unroll
+      for (int k = 0; k < kVB; ++k)
+        acc += static_cast<long long>(s.M[(bi + a) * kLd + kNB + bi + k]) *
+               s.T[pi][k * kVB + c];
+      s.M[(bi + a) * kLd + kNB + bj + c] = -F.red64(acc);
+    }
+    __syncthreads();
+  }
+  for (int idx = tid; idx < kNB * kNB; idx += kThreads)
+    Vinv[idx] = s.M[(idx >> 6) * kLd + kNB + (idx & (kNB - 1))];
+  stamp<kStamp>(stamps, 5);
+}
+
+// ---- cluster variant -------------------------------------------------
+
+// Row stride of a block's transposed panel: R rounded up so that it is an
+// odd number of 32-bit words (column-wise stores by a warp spread over
+// the banks).
+__host__ __device__ inline int cluster_rld(int R) {
+  int r = (R + 1) & ~1;
+  if (((r >> 1) & 1) == 0) r += 2;
+  return r;
+}
+
+__host__ __device__ inline size_t cluster_smem(int R) {
+  const size_t pan = sizeof(short) * kNB * cluster_rld(R) + R;
+  const size_t m = sizeof(MinorShared);
+  return ((pan > m ? pan : m) + 15) & ~static_cast<size_t>(15);
+}
+
+// The exchange of a discovery step: each block's candidate (its first
+// available row with a nonzero in column t, or none) as one 144-byte
+// message, copied by the Tensor Memory Accelerator's bulk copy into every
+// block of the cluster (16 copies, one per lane), whose mbarrier counts
+// the bytes in.  (Plain DSMEM stores with a remote arrive per store, and
+// one cluster barrier per step, were both slower.)
+struct __align__(16) Candidate {
+  int row;                              // n: none
+  int pad[3];
+  short val[kNB];
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+template <bool kStamp>
+__global__ void __launch_bounds__(kThreads, 1)
+panel_cluster(const int* __restrict__ P, long long ld, int n, int R,
+              const unsigned char* __restrict__ piv_in, int* lrows,
+              unsigned char* lhas, unsigned char* piv_out, int* Z, int* Vinv,
+              int p, int rref, long long* stamps) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ int4 smem4[];
+  const int Rld = cluster_rld(R);
+  short* Pt = reinterpret_cast<short*>(smem4);          // (64, Rld)
+  unsigned char* piv = reinterpret_cast<unsigned char*>(Pt + kNB * Rld);
+  // per step parity: this block's message, and every block's
+  __shared__ Candidate s_out[2];
+  __shared__ Candidate s_in[2][kCluster];
+  __shared__ __align__(8) unsigned long long s_bar[2];
+  __shared__ int s_loc[3], s_lr[kNB];  // s_loc rotates over 3 steps
+  const spasm::Fp F(p);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int me = static_cast<int>(cluster.block_rank());
+  const bool lead = me == 0;
+  const int row0 = me * R;
+  const int Rb = max(0, min(R, n - row0));
+  if (lead) stamp<kStamp>(stamps, 0);
+  for (int idx = tid; idx < Rb * kNB; idx += kThreads) {
+    const int i = idx >> 6;
+    const int c = idx & (kNB - 1);
+    Pt[c * Rld + i] = static_cast<short>(
+        P[static_cast<long long>(row0 + i) * ld + c]);
+  }
+  for (int i = tid; i < R; i += kThreads)
+    piv[i] = i < Rb ? piv_in[row0 + i] : 1;
+  if (tid < 3) s_loc[tid] = R;
+  if (tid < 2) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_addr(&s_bar[tid])));
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  // S = min(8, 1024 / Rb) threads per row: thread tid < S * rstep
+  // (rstep = 1024 / S) serves rows tid / S + k * rstep; its lane s = tid %
+  // S scans (s == 0) and updates columns t + 1 + s, t + 1 + s + S, ... —
+  // so the column that the next step scans is written by the thread that
+  // scans it.  (Sending the next candidate before the bulk of the update,
+  // to overlap the exchange with it, cost more barriers than it hid.)
+  const int S = Rb > 0 ? max(1, min(8, kThreads / Rb)) : 8;
+  const int rstep = kThreads / S;
+  const int sl = tid % S;
+  const int rfirst = tid < S * rstep ? tid / S : Rb;
+  cluster.sync();                       // every block's mbarriers are set
+  if (lead) stamp<kStamp>(stamps, 1);
+  for (int t = 0; t < kNB; ++t) {
+    const int b = t & 1;
+    const int sb = t % 3;
+    // s_loc[(t + 1) % 3] was last read at step t - 2, before the last
+    // block barrier; the next one orders this reset before its use
+    if (tid == 0) s_loc[sb == 2 ? 0 : sb + 1] = R;
+    int lmin = R;
+    if (sl == 0)
+      for (int i = rfirst; i < Rb; i += rstep)
+        if (!piv[i] && Pt[t * Rld + i] != 0) {
+          lmin = i;
+          break;
+        }
+    lmin = __reduce_min_sync(0xffffffffu, lmin);
+    if (lane == 0 && lmin < R) atomicMin(&s_loc[sb], lmin);
+    __syncthreads();
+    if (tid < kNB) {                    // the message: warps 0 and 1
+      const int l = s_loc[sb];
+      s_out[b].val[tid] = l < R ? Pt[tid * Rld + l] : 0;
+      if (tid == 0) s_out[b].row = l < R ? row0 + l : n;
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync 1, 64;" ::: "memory");
+      const unsigned bar = smem_addr(&s_bar[b]);
+      if (tid == 0)
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+            :: "r"(bar), "r"(static_cast<int>(sizeof(Candidate)) * kCluster)
+            : "memory");
+      if (tid < kCluster) {             // lane d copies to block d
+        asm volatile(
+            "cp.async.bulk.shared::cluster.shared::cta.mbarrier::"
+            "complete_tx::bytes [%0], [%1], %2, [%3];"
+            :: "r"(cluster_addr(smem_addr(&s_in[b][me]), tid)),
+               "r"(smem_addr(&s_out[b])),
+               "r"(static_cast<int>(sizeof(Candidate))),
+               "r"(cluster_addr(bar, tid))
+            : "memory");
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+    }
+    mbar_wait(smem_addr(&s_bar[b]), (t >> 1) & 1);
+    int r = lane < kCluster ? s_in[b][lane].row : n;
+    r = __reduce_min_sync(0xffffffffu, r);
+    if (tid == 0) s_lr[t] = r < n ? r : -1;
+    if (r >= n) continue;               // cluster-uniform: empty slot
+    const short* prow = s_in[b][r / R].val;
+    const int v = prow[t];
+    for (int i = rfirst; i < Rb; i += rstep) {
+      if (row0 + i == r) {              // the pivot row
+        if (sl == 0) piv[i] = 1;
+        continue;
+      }
+      if (piv[i]) continue;
+      const int g = Pt[t * Rld + i];
+      if (g == 0) continue;
+      for (int c = t + 1 + sl; c < kNB; c += S) {
+        short* e = &Pt[c * Rld + i];
+        *e = static_cast<short>(F.red(v * *e - g * prow[c]));
+      }
+    }
+    // s_in[b] is written again (step t + 2) only after every block has
+    // passed step t + 1's exchange, which needs this block's message of
+    // step t + 1, sent after its next block barrier; by then this block's
+    // copies of step t, and so their reads of s_out[b], are complete
+  }
+  __syncthreads();
+  for (int i = tid; i < Rb; i += kThreads) piv_out[row0 + i] = piv[i];
+  if (tid < kCluster)
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  if (!lead) return;
+  __syncthreads();
+  stamp<kStamp>(stamps, 2);
+  // the panel is dead: the minor takes its shared memory
+  minor<kStamp>(P, ld, s_lr, lrows, lhas, Z, Vinv,
+                *reinterpret_cast<MinorShared*>(smem4), F, rref != 0,
+                stamps);
+}
+
+// ---- cooperative variant ---------------------------------------------
+
+template <bool kStamp>
 __global__ void __launch_bounds__(kThreads)
-panel_kernel(const int* __restrict__ P, long long ld, int n,
-             const unsigned char* __restrict__ piv_in, int* lrows,
-             unsigned char* lhas, unsigned char* piv, int* Z, int* Vinv,
-             int* Pt, int* rslot, int p, int rref) {
+panel_coop(const int* __restrict__ P, long long ld, int n,
+           const unsigned char* __restrict__ piv_in, int* lrows,
+           unsigned char* lhas, unsigned char* piv, int* Z, int* Vinv,
+           int* Pt, int* rslot, int p, int rref, long long* stamps) {
   cg::grid_group grid = cg::this_grid();
-  const float invp = 1.0f / static_cast<float>(p);
+  const spasm::Fp F(p);
   const int tid = threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads + tid;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + tid;
   const long long nn = n;
+  const bool lead = blockIdx.x == 0;
   __shared__ int s_min;
   __shared__ int s_prow[kNB];
-
-  // ---- phase 1: discovery sweep over the working copy -----------------
+  __shared__ int s_lr[kNB];
+  __shared__ MinorShared ms;
+  if (lead) stamp<kStamp>(stamps, 0);
+  // the working copy, transposed (64, n) in device memory (L2)
   for (long long i = first; i < nn; i += stride) {
     piv[i] = piv_in[i];
     for (int c = 0; c < kNB; ++c) Pt[c * nn + i] = P[i * ld + c];
   }
-  if (blockIdx.x == 0 && tid < kNB) rslot[tid] = n;   // n: no pivot
+  if (lead && tid < kNB) rslot[tid] = n;   // n: no pivot
   grid.sync();
+  if (lead) stamp<kStamp>(stamps, 1);
   for (int t = 0; t < kNB; ++t) {
     if (tid == 0) s_min = n;
     __syncthreads();
@@ -104,99 +481,62 @@ panel_kernel(const int* __restrict__ P, long long ld, int n,
       if (g == 0) continue;
       for (int c = t + 1; c < kNB; ++c) {
         int* e = &Pt[c * nn + i];
-        *e = spasm::reduce31(v * *e - g * s_prow[c], p, invp);
+        *e = F.red(v * *e - g * s_prow[c]);
       }
     }
     // s_prow is rewritten only after the next grid.sync
   }
-  if (blockIdx.x != 0) return;
-
-  // ---- phases 2-5: the 64 x 64 pivot minor, block 0 alone -------------
-  __shared__ int M[kNB * kLd];
-  __shared__ int s_lr[kNB], s_g[kNB], s_d[kNB], s_pr[kW];
+  if (!lead) return;
+  stamp<kStamp>(stamps, 2);
   if (tid < kNB) {
     const int r = __ldcg(&rslot[tid]);
     s_lr[tid] = r < n ? r : -1;
-    lrows[tid] = s_lr[tid];
-    lhas[tid] = r < n ? 1 : 0;
   }
   __syncthreads();
-  for (int idx = tid; idx < kNB * kW; idx += kThreads) {
-    const int i = idx / kW;
-    const int c = idx - i * kW;
-    int x;
-    if (c < kNB)
-      x = (s_lr[i] >= 0 && s_lr[c] >= 0)
-              ? P[static_cast<long long>(s_lr[i]) * ld + c]
-              : (i == c);
-    else
-      x = (c - kNB == i);
-    M[i * kLd + c] = x;
-  }
-  __syncthreads();
-  for (int t = 0; t < kNB; ++t) {
-    for (int c = tid; c < kW; c += kThreads) s_pr[c] = M[t * kLd + c];
-    if (tid < kNB) {
-      int g = M[tid * kLd + t];
-      if (rref) {
-        if (tid == t) g = spasm::reduce31(g - 1, p, invp);
-      } else if (tid <= t) {
-        g = 0;
-      }
-      s_g[tid] = g;
-    }
-    __syncthreads();
-    const int v = s_pr[t];
-    for (int idx = tid; idx < kNB * kW; idx += kThreads) {
-      const int i = idx / kW;
-      const int c = idx - i * kW;
-      if (!rref && i <= t) continue;
-      int* e = &M[i * kLd + c];
-      *e = spasm::reduce31(v * *e - s_g[i] * s_pr[c], p, invp);
-    }
-    __syncthreads();
-  }
-  if (tid < kNB) s_d[tid] = spasm::modinv32(M[tid * kLd + tid], p, invp);
-  __syncthreads();
-  for (int idx = tid; idx < kNB * kNB; idx += kThreads) {
-    const int i = idx / kNB;
-    const int j = idx - i * kNB;
-    Z[idx] = spasm::reduce31(s_d[i] * M[i * kLd + kNB + j], p, invp);
-    // LU: the left half becomes Vup = D^-1 Omega (unit upper)
-    if (!rref) M[i * kLd + j] = spasm::reduce31(s_d[i] * M[i * kLd + j], p,
-                                                invp);
-  }
-  if (rref) return;
-  __syncthreads();
-  // Vinv into the right half (Z is out): row i = e_i - sum_{k>i} V[i,k]
-  // Vinv[k], rows from the bottom; each sum <= 64 * p/2 fits an int
-  for (int i = kNB - 1; i >= 0; --i) {
-    if (tid < kNB) {
-      int acc = 0;
-      for (int k = i + 1; k < kNB; ++k)
-        acc += spasm::reduce31(M[i * kLd + k] * M[k * kLd + kNB + tid], p,
-                               invp);
-      const int x = spasm::reduce31(-acc, p, invp) + (tid == i ? 1 : 0);
-      M[i * kLd + kNB + tid] = spasm::reduce31(x, p, invp);
-    }
-    __syncthreads();
-  }
-  for (int idx = tid; idx < kNB * kNB; idx += kThreads) {
-    const int i = idx / kNB;
-    Vinv[idx] = M[i * kLd + kNB + (idx - i * kNB)];
-  }
+  minor<kStamp>(P, ld, s_lr, lrows, lhas, Z, Vinv, ms, F, rref != 0, stamps);
 }
 
-}  // namespace
+template <bool kStamp>
+cudaError_t launch_cluster(const int* P, long long ld, int n,
+                           const unsigned char* piv_in, int* lrows,
+                           unsigned char* lhas, unsigned char* piv_out,
+                           int* Z, int* Vinv, int p, int rref,
+                           long long* stamps, cudaStream_t s) {
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        panel_cluster<kStamp>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(panel_cluster<kStamp>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cluster_smem(kRowsMax)));
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  const int R = (n + kCluster - 1) / kCluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = cluster_smem(R);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, panel_cluster<kStamp>, P, ld, n, R, piv_in,
+                            lrows, lhas, piv_out, Z, Vinv, p, rref, stamps);
+}
 
-// P: (n, 64) int32 panel at row stride ld (elements); piv_in / piv_out
-// (n,) bool; lrows (64,) int32, lhas (64,) bool, Z and Vinv (64, 64)
-// int32 (Vinv unused when rref); Pt (64 * n,) and rslot (64,) int32
-// scratch.  One cooperative launch.
-extern "C" int spasm_panel(const void* P, long long ld, int n,
-                           const void* piv_in, void* lrows, void* lhas,
-                           void* piv_out, void* Z, void* Vinv, void* Pt,
-                           void* rslot, int p, int rref, void* stream) {
+template <bool kStamp>
+cudaError_t launch_coop(const int* P, long long ld, int n,
+                        const unsigned char* piv_in, int* lrows,
+                        unsigned char* lhas, unsigned char* piv_out, int* Z,
+                        int* Vinv, int* Pt, int* rslot, int p, int rref,
+                        long long* stamps, cudaStream_t s) {
   static int max_blocks = 0;            // co-resident blocks on this card
   if (max_blocks == 0) {
     int dev = 0, sms = 0, per = 0;
@@ -204,28 +544,75 @@ extern "C" int spasm_panel(const void* P, long long ld, int n,
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, panel_kernel,
-                                                        kThreads, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, panel_coop<kStamp>, kThreads, 0);
+    if (e != cudaSuccess) return e;
     max_blocks = per * sms;
   }
   int blocks = (n + kThreads - 1) / kThreads;
   if (blocks > max_blocks) blocks = max_blocks;
   if (blocks < 1) blocks = 1;
+  void* args[] = {&P,    &ld,   &n,  &piv_in, &lrows, &lhas,  &piv_out, &Z,
+                  &Vinv, &Pt,   &rslot, &p,   &rref,  &stamps};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(panel_coop<kStamp>), dim3(blocks),
+      dim3(kThreads), args, 0, s);
+}
+
+template <bool kStamp>
+int panel(const void* P, long long ld, int n, const void* piv_in,
+          void* lrows, void* lhas, void* piv_out, void* Z, void* Vinv,
+          void* Pt, void* rslot, int p, int rref, int variant,
+          long long* stamps, void* stream) {
+  if (variant == 0 && n > kCluster * kRowsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* a_P = static_cast<const int*>(P);
-  const unsigned char* a_piv_in = static_cast<const unsigned char*>(piv_in);
+  const unsigned char* a_in = static_cast<const unsigned char*>(piv_in);
   int* a_lrows = static_cast<int*>(lrows);
   unsigned char* a_lhas = static_cast<unsigned char*>(lhas);
-  unsigned char* a_piv = static_cast<unsigned char*>(piv_out);
+  unsigned char* a_out = static_cast<unsigned char*>(piv_out);
   int* a_Z = static_cast<int*>(Z);
   int* a_Vinv = static_cast<int*>(Vinv);
-  int* a_Pt = static_cast<int*>(Pt);
-  int* a_rslot = static_cast<int*>(rslot);
-  void* args[] = {&a_P,  &ld,   &n,    &a_piv_in, &a_lrows, &a_lhas, &a_piv,
-                  &a_Z,  &a_Vinv, &a_Pt, &a_rslot, &p,      &rref};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(panel_kernel), dim3(blocks), dim3(kThreads),
-      args, 0, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e =
+      variant == 0
+          ? launch_cluster<kStamp>(a_P, ld, n, a_in, a_lrows, a_lhas, a_out,
+                                   a_Z, a_Vinv, p, rref, stamps, s)
+          : launch_coop<kStamp>(a_P, ld, n, a_in, a_lrows, a_lhas, a_out,
+                                a_Z, a_Vinv, static_cast<int*>(Pt),
+                                static_cast<int*>(rslot), p, rref, stamps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// P: (n, 64) int32 panel at row stride ld (elements); piv_in / piv_out
+// (n,) bool; lrows (64,) int32, lhas (64,) bool, Z and Vinv (64, 64)
+// int32 (Vinv unused when rref).  variant: 0 = cluster (n <= 24576),
+// 1 = cooperative (any n), which also takes Pt (64 * n,) and rslot (64,)
+// int32 scratch (unused by the cluster variant).  One launch either way.
+extern "C" int spasm_panel(const void* P, long long ld, int n,
+                           const void* piv_in, void* lrows, void* lhas,
+                           void* piv_out, void* Z, void* Vinv, void* Pt,
+                           void* rslot, int p, int rref, int variant,
+                           void* stream) {
+  return panel<false>(P, ld, n, piv_in, lrows, lhas, piv_out, Z, Vinv, Pt,
+                      rslot, p, rref, variant, nullptr, stream);
+}
+
+// The same with phase stamps: stamps (12,) int64 receives clock64() of
+// block 0 at the six phase borders, then %globaltimer (ns) at the same.
+extern "C" int spasm_panel_stamped(const void* P, long long ld, int n,
+                                   const void* piv_in, void* lrows,
+                                   void* lhas, void* piv_out, void* Z,
+                                   void* Vinv, void* Pt, void* rslot, int p,
+                                   int rref, int variant, void* stamps,
+                                   void* stream) {
+  return panel<true>(P, ld, n, piv_in, lrows, lhas, piv_out, Z, Vinv, Pt,
+                     rslot, p, rref, variant, static_cast<long long*>(stamps),
+                     stream);
+}
+
+// Most rows the cluster variant takes.
+extern "C" int spasm_panel_cluster_rows() { return kCluster * kRowsMax; }

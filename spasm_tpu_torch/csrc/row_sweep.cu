@@ -18,25 +18,45 @@
 // steps; the bound is the 2 x nb launches per sweep (latency), not bytes.
 //
 // B3 `spasm_row_sweep_tiles` replaces `_row_sweep_kernel2`
-// (rowrref.py:126, pallas_call at :302): per column tile of kTW columns,
-// one block sweeps [tile | I_64] in shared memory over the rows not yet
-// pivoted (pivot = leftmost nonzero inside the tile), then a compose
-// launch applies the accumulated 64 x 64 transform Z to every other tile.
-// The TPU tile (2048 + 128 columns, 557 KB) does not fit; kTW = 512
-// divides the 2048 width quantum and [tile | I_64] in int32 is 147 KB of
-// dynamic shared memory.  Row state (pivoted flag, absolute pivot column)
-// lives in global memory; a tile with no candidate row sets a skip flag
-// that the compose launch reads on the device, so no pass syncs the host.
-// The pivots depend on kTW: dense/rowrref.py emulates the same rule in
-// torch (`_row_sweep_tiles_plain`) and the two are bit-equal.  Bound: the
-// sequential in-block steps of each live tile pass (shared-memory
-// latency); the compose is int64-accumulated CUDA-core MACs (tensor-core
-// int8 compose is later work).
+// (rowrref.py:126, pallas_call at :302): the tile rule.  Tiles of kTW =
+// 512 columns are visited left to right; a tile where some row not yet
+// pivoted has a nonzero is live, and there each such row, in order, takes
+// the leftmost nonzero inside the tile as its pivot.  The TPU kernel, and
+// this port's first version, swept [tile | I_64] per tile and composed the
+// tile's transform into every other tile: 2 M / kTW launches per sweep and
+// T 64 64 M multiply-adds for T live tiles.  Every step left-multiplies
+// the panel by a 64 x 64 matrix, so the sweep's result is W P_in with W
+// the product of the tiles' transforms, and every stored value is a
+// balanced (canonical) residue, so any association of that product gives
+// the same integers.  The redesign is left-looking, ONE cooperative launch
+// (grid = co-resident blocks of 1024 threads, at most M / 64):
+//   1. all blocks: the first column >= the next tile where a row not yet
+//      pivoted of W P_in is nonzero (a grid-wide min; none, or every row
+//      pivoted, ends the loop);
+//   2. block 0: the pass over that tile, applying each Jordan step to W
+//      alone (64 x 64 in shared memory; the tile itself is only read);
+//   3. repeat from the tile after it: 2 grid barriers per live tile;
+//   4. all blocks: P <- W P_in, 64 64 M multiply-adds, each block on its
+//      own column chunks, read whole before they are written.
+// Bound: the sequential steps of the live passes, at most 64 per sweep,
+// each a 64 x 64 update of W plus a 256-column scan on one SM (integer
+// work bound by the SM's instruction rate, three cheap block barriers);
+// then the grid barriers and the final product (92 M multiply-adds with
+// int64 sums on CUDA cores); the bytes (the panel read and written once:
+// 11.5 MB at M = 22528, 3.4 us) come last.  Products of balanced values
+// are < 2^30, so sums of 64 are exact in int64 and reduced through FP64
+// (spasm::Fp).  The pivots depend on kTW: dense/rowrref.py follows the
+// same algorithm in torch (`_row_sweep_tiles_plain`) and the two are
+// bit-equal.  The sweep adds its count of live tiles to a histogram on
+// the card (hist).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "modp.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -98,120 +118,283 @@ sweep_update(int* __restrict__ P, int nb, int M, int k,
 // ---------------------------------------------------------------- B3 ----
 
 constexpr int kNB = 64;                 // sub-panel rows
-constexpr int kTW = 512;                // Hopper tile width
-constexpr int kW = kTW + kNB;           // [tile | I_64]
-constexpr int kPassThreads = 1024;
-constexpr int kCC = 64;                 // columns per compose block
-constexpr int kCompThreads = 256;
-constexpr size_t kAugBytes = sizeof(int) * kNB * kW;   // 147456
+constexpr int kTW = 512;                // tile width (the pivot rule's)
+constexpr int kThreads = 1024;
+constexpr int kWld = kNB + 1;           // W rows, padded
+constexpr int kBld = kTW + 8;           // tile rows: the pad puts the four
+                                        // partial sums of a column on
+                                        // four bank groups
+constexpr int kCW = 64;                 // columns per find / product chunk
+constexpr int kCld = kCW + 1;
+constexpr int kHalf = kTW / 2;          // columns per scan of a step
+// W, the other W buffer of the pass, the tile
+constexpr size_t kSmemBytes = sizeof(int) * (2 * kNB * kWld + kNB * kBld);
+// state (int32): W[kNB * kNB], col[kNB] (pivot column or -1), then one
+// `next` slot per live tile (and one for the search that ends the sweep)
+constexpr int kStCol = kNB * kNB;
+constexpr int kStNext = kStCol + kNB;
+constexpr int kStSize = kStNext + kNB + 1;
 
-// state (int32): flag[kNB], col[kNB], skip, Z[kNB * kNB]
-__global__ void __launch_bounds__(kPassThreads)
-tile_pass(int* __restrict__ P, int M, int t, int* st, int p) {
-  extern __shared__ int aug[];          // kNB x kW
-  __shared__ int s_flag[kNB], s_col[kNB], s_g[kNB], s_u[kW];
-  __shared__ int s_j;
-  int* flag = st;
-  int* col = st + kNB;
-  int* skip = st + 2 * kNB;
-  int* Z = st + 2 * kNB + 1;
+struct SweepShared {
+  int col[kNB];
+  int unp[kNB];                         // rows not yet pivoted, ascending
+  int nunp;
+  int g[kNB];
+  int row[kHalf];                       // a scanned half of row k
+  int j[3];
+  int min, lim;
+  int cb0;                              // the tile's first nonzero column
+};
+
+// Every block: the pivot state and W from global memory (W = I, not read,
+// until the first live tile), and the list of rows not yet pivoted.
+__device__ void load_state(const int* st, int* sW, SweepShared& s,
+                           bool ident) {
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int c0 = t * kTW;
-  const float invp = 1.0f / static_cast<float>(p);
-  if (tid < kNB) {
-    s_flag[tid] = flag[tid];
-    s_col[tid] = col[tid];
+  if (!ident)
+    for (int idx = tid; idx < kNB * kNB; idx += kThreads)
+      sW[(idx >> 6) * kWld + (idx & 63)] = __ldcg(st + idx);
+  if (tid < kNB) s.col[tid] = __ldcg(st + kStCol + tid);
+  if (tid == 0) s.cb0 = kTW;
+  __syncthreads();
+  if (tid < 32) {
+    int base = 0;
+    for (int h = 0; h < kNB; h += 32) {
+      const bool u = s.col[h + tid] < 0;
+      const unsigned m = __ballot_sync(0xffffffffu, u);
+      if (u) s.unp[base + __popc(m & ((1u << tid) - 1u))] = h + tid;
+      base += __popc(m);
+    }
+    if (tid == 0) s.nunp = base;
   }
   __syncthreads();
-  int any = 0;
-  for (int idx = tid; idx < kNB * kW; idx += nt) {
-    const int i = idx / kW;
-    const int c = idx - i * kW;
-    int x;
-    if (c < kTW) {
-      x = P[static_cast<int64_t>(i) * M + c0 + c];
-      if (x != 0 && !s_flag[i]) any = 1;
-    } else {
-      x = (c - kTW == i) ? 1 : 0;
-    }
-    aug[idx] = x;
-  }
-  if (!__syncthreads_or(any)) {         // no candidate row: skip the tile
-    if (tid == 0) *skip = 1;
-    return;
-  }
-  for (int k = 0; k < kNB; ++k) {
-    if (s_flag[k]) continue;            // block-uniform
-    __syncthreads();                    // every thread done with s_j
-    if (tid == 0) s_j = kTW;
-    __syncthreads();
-    int jl = kTW;
-    for (int c = tid; c < kTW; c += nt)
-      if (aug[k * kW + c] != 0) {
-        jl = c;
-        break;
-      }
-    jl = __reduce_min_sync(0xffffffffu, jl);
-    if ((tid & 31) == 0 && jl < kTW) atomicMin(&s_j, jl);
-    __syncthreads();
-    const int j = s_j;
-    if (j == kTW) continue;             // block-uniform: no pivot here
-    for (int c = tid; c < kW; c += nt) s_u[c] = aug[k * kW + c];
-    if (tid < kNB) s_g[tid] = (tid == k) ? 0 : aug[tid * kW + j];
-    __syncthreads();
-    const int v = s_u[j];
-    for (int idx = tid; idx < kNB * kW; idx += nt) {
-      const int i = idx / kW;
-      const int c = idx - i * kW;
-      aug[idx] = spasm::reduce31(v * aug[idx] - s_g[i] * s_u[c], p, invp);
-    }
-    if (tid == 0) {
-      s_flag[k] = 1;
-      s_col[k] = c0 + j;
-    }
-    __syncthreads();
-  }
-  for (int idx = tid; idx < kNB * kW; idx += nt) {
-    const int i = idx / kW;
-    const int c = idx - i * kW;
-    if (c < kTW)
-      P[static_cast<int64_t>(i) * M + c0 + c] = aug[idx];
-    else
-      Z[i * kNB + (c - kTW)] = aug[idx];
-  }
-  if (tid < kNB) {
-    flag[tid] = s_flag[tid];
-    col[tid] = s_col[tid];
-  }
-  if (tid == 0) *skip = 0;
 }
 
-// P[:, cols] <- Z @ P[:, cols] for every column block outside tile t.
-__global__ void __launch_bounds__(kCompThreads)
-tile_compose(int* __restrict__ P, int M, int t, const int* __restrict__ st,
-             int p) {
-  if (st[2 * kNB]) return;              // the pass found no candidate
-  const int col0 = blockIdx.x * kCC;
-  if (col0 / kTW == t) return;
-  __shared__ int sZ[kNB][kNB + 1];
-  __shared__ int sX[kNB][kCC];
-  const int* Z = st + 2 * kNB + 1;
-  for (int idx = threadIdx.x; idx < kNB * kNB; idx += blockDim.x)
-    sZ[idx / kNB][idx % kNB] = Z[idx];
-  for (int idx = threadIdx.x; idx < kNB * kCC; idx += blockDim.x) {
-    const int i = idx / kCC;
-    const int c = idx % kCC;
-    sX[i][c] = P[static_cast<int64_t>(i) * M + col0 + c];
-  }
-  __syncthreads();
-  const int c = threadIdx.x % kCC;
-  for (int i = threadIdx.x / kCC; i < kNB; i += kCompThreads / kCC) {
-    long long acc = 0;
+// Step 1, every block: the first column >= cstart where a row not yet
+// pivoted of W P has a nonzero, atomicMin'd into *next.  Chunks of kCW
+// columns go round-robin over the blocks, so the earliest chunks are
+// scanned first; a block stops at its first hit, or once its chunk starts
+// past the best column found so far.
+__device__ void find_next(const int* __restrict__ P, int M, int cstart,
+                          const int* sW, int* sC, SweepShared& s, bool ident,
+                          int* next, const spasm::Fp& F) {
+  const int tid = threadIdx.x;
+  const int nout = s.nunp * kCW;
+  for (int c0 = cstart + blockIdx.x * kCW; c0 < M; c0 += gridDim.x * kCW) {
+    __syncthreads();                    // the last chunk's reads are done
+    if (tid == 0) {
+      s.min = M;
+      s.lim = __ldcg(next);
+    }
+    if (!ident)
+      for (int idx = tid; idx < kNB * kCW; idx += kThreads)
+        sC[(idx >> 6) * kCld + (idx & 63)] =
+            P[static_cast<int64_t>(idx >> 6) * M + c0 + (idx & 63)];
+    __syncthreads();
+    if (c0 >= s.lim) return;            // block-uniform
+    int cand = M;
+    for (int idx = tid; idx < nout; idx += kThreads) {
+      const int i = s.unp[idx >> 6];
+      const int c = idx & 63;
+      int x;
+      if (ident) {
+        x = P[static_cast<int64_t>(i) * M + c0 + c];
+      } else {
+        const int* w = sW + i * kWld;
+        long long acc = 0;
 #pragma unroll 16
-    for (int l = 0; l < kNB; ++l) acc += sZ[i][l] * sX[l][c];  // < 2^31 each
-    P[static_cast<int64_t>(i) * M + col0 + c] = spasm::reduce64(acc, p);
+        for (int l = 0; l < kNB; ++l)
+          acc += static_cast<long long>(w[l]) * sC[l * kCld + c];
+        x = F.red64(acc);
+      }
+      if (x != 0 && c0 + c < cand) cand = c0 + c;
+    }
+    cand = __reduce_min_sync(0xffffffffu, cand);
+    if ((tid & 31) == 0 && cand < M) atomicMin(&s.min, cand);
+    __syncthreads();
+    if (s.min < M) {                    // block-uniform
+      if (tid == 0) atomicMin(next, s.min);
+      return;
+    }
   }
+}
+
+// Step 2, one block: the pass over tile [c0, c0 + kTW), left-looking.  The
+// tile X = W B (B = P_in[:, tile]) is never formed: row k of the current
+// tile is W[k] B, scanned kHalf columns at a time, from B's first nonzero
+// column, for its leftmost nonzero j (four threads per column); the pivot
+// column is W B[:, j] (four threads per row); and the Jordan step X <- v
+// X - g (x) X[k] is applied to W alone, so W ends as Z_t W.  Every value
+// is the balanced residue the right-looking sweep holds at that point, so
+// the pivots are the same.  W is double-buffered: a step reads one buffer
+// (its row k is the step's X[k] factor) and writes the other, at the start
+// of the next visit; three cheap block barriers per step.  Returns the
+// buffer holding the final W.
+__device__ const int* tile_pass(const int* __restrict__ P, int M, int c0,
+                                int* sW, int* sW2, int* sB, SweepShared& s,
+                                bool ident, const spasm::Fp& F) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  constexpr int kQ = kTW / 4;           // int4 per tile row
+  int nz0 = kTW;                        // columns left of it are zero in B
+  for (int idx = tid; idx < kNB * kQ; idx += kThreads) {
+    const int l = idx / kQ;
+    const int c4 = idx - l * kQ;
+    const int4 x = reinterpret_cast<const int4*>(
+        P + static_cast<int64_t>(l) * M + c0)[c4];
+    reinterpret_cast<int4*>(sB + l * kBld)[c4] = x;
+    if ((x.x | x.y | x.z | x.w) != 0 && 4 * c4 < nz0) nz0 = 4 * c4;
+  }
+  nz0 = __reduce_min_sync(0xffffffffu, nz0);
+  if (lane == 0 && nz0 < kTW) atomicMin(&s.cb0, nz0);
+  if (ident)
+    for (int idx = tid; idx < kNB * kNB; idx += kThreads)
+      sW[(idx >> 6) * kWld + (idx & 63)] = (idx >> 6) == (idx & 63);
+  if (tid == 0) s.j[0] = kTW;
+  __syncthreads();
+  const int cb0 = s.cb0;                // the scan starts there
+  int* cur = sW;
+  int* nxt = sW2;
+  // a step not yet applied to W: v, s.g and row kp of cur
+  int v = 0, kp = -1;
+  int jb = 0;                           // s.j rotates over 3 visits
+  auto apply = [&]() {
+    const int* wk = cur + kp * kWld;
+    for (int idx = tid; idx < kNB * kNB; idx += kThreads) {
+      const int i = idx >> 6, l = idx & 63;
+      nxt[i * kWld + l] = F.red(v * cur[i * kWld + l] - s.g[i] * wk[l]);
+    }
+    int* t = cur;
+    cur = nxt;
+    nxt = t;
+    kp = -1;
+  };
+  for (int k = 0; k < kNB; ++k) {
+    if (s.col[k] >= 0) continue;        // block-uniform
+    int* sj = &s.j[jb];
+    jb = jb == 2 ? 0 : jb + 1;
+    if (tid == 0) s.j[jb] = kTW;        // the next visit's slot
+    if (kp >= 0) {
+      apply();
+      __syncthreads();
+    }
+    const int* wk = cur + k * kWld;
+    int j = kTW, h0 = cb0;
+    for (; h0 < kTW; h0 += kHalf) {
+      const int cc = tid >> 2, q = tid & 3;
+      const int* b = sB + h0 + cc;
+      long long acc = 0;
+      if (h0 + cc < kTW) {
+#pragma unroll
+        for (int m = 0; m < kNB / 4; ++m) {
+          const int l = 4 * m + q;
+          acc += static_cast<long long>(wk[l]) * b[l * kBld];
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      int cand = kTW;
+      if (q == 0) {
+        const int x = F.red64(acc);
+        s.row[cc] = x;
+        if (x != 0) cand = h0 + cc;
+      }
+      cand = __reduce_min_sync(0xffffffffu, cand);
+      if (lane == 0 && cand < kTW) atomicMin(sj, cand);
+      __syncthreads();
+      j = *sj;
+      if (j < kTW) break;               // block-uniform
+    }
+    if (j == kTW) continue;             // row k is zero on this tile
+    const int vk = s.row[j - h0];
+    if (tid < 4 * kNB) {                // the pivot column, 4 per row
+      const int i = tid >> 2, q = tid & 3;
+      const int* w = cur + i * kWld;
+      long long acc = 0;
+#pragma unroll
+      for (int m = 0; m < kNB / 4; ++m) {
+        const int l = 4 * m + q;
+        acc += static_cast<long long>(w[l]) * sB[l * kBld + j];
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (q == 0) s.g[i] = i == k ? 0 : F.red64(acc);
+    }
+    if (tid == 0) s.col[k] = c0 + j;
+    __syncthreads();
+    v = vk;
+    kp = k;
+  }
+  if (kp >= 0) {
+    apply();
+    __syncthreads();
+  }
+  return cur;
+}
+
+// Step 4, every block: P <- W P_in over its round-robin chunks of kCW
+// columns, each read whole into shared memory before it is written.
+__device__ void apply_w(int* __restrict__ P, int M, const int* sW, int* sC,
+                        const spasm::Fp& F) {
+  const int tid = threadIdx.x;
+  const int r0 = tid >> 6, c = tid & 63;    // rows r0 + 16 m, one column
+  for (int c0 = blockIdx.x * kCW; c0 < M; c0 += gridDim.x * kCW) {
+    __syncthreads();
+    for (int idx = tid; idx < kNB * kCW; idx += kThreads)
+      sC[(idx >> 6) * kCld + (idx & 63)] =
+          P[static_cast<int64_t>(idx >> 6) * M + c0 + (idx & 63)];
+    __syncthreads();
+    long long acc[4] = {0, 0, 0, 0};
+#pragma unroll 8
+    for (int l = 0; l < kNB; ++l) {
+      const long long b = sC[l * kCld + c];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) acc[m] += sW[(r0 + 16 * m) * kWld + l] * b;
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      P[static_cast<int64_t>(r0 + 16 * m) * M + c0 + c] = F.red64(acc[m]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+tile_sweep(int* __restrict__ P, int M, int* st, int* hist, int p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int4 smem4[];
+  int* sW = reinterpret_cast<int*>(smem4);
+  int* sW2 = sW + kNB * kWld;
+  int* sB = sW2 + kNB * kWld;           // the pass's tile, or a chunk
+  __shared__ SweepShared s;
+  const spasm::Fp F(p);
+  const int tid = threadIdx.x;
+  if (blockIdx.x == 0) {
+    if (tid < kNB) st[kStCol + tid] = -1;
+    if (tid <= kNB) st[kStNext + tid] = M;
+  }
+  grid.sync();
+  bool ident = true;                    // W = I until the first live tile
+  int live = 0, cstart = 0;
+  for (;;) {
+    load_state(st, sW, s, ident);
+    if (s.nunp == 0 || cstart >= M) break;        // grid-uniform
+    find_next(P, M, cstart, sW, sB, s, ident, st + kStNext + live, F);
+    grid.sync();
+    const int nx = __ldcg(st + kStNext + live);
+    if (nx >= M) break;                           // grid-uniform
+    const int c0 = nx / kTW * kTW;
+    if (blockIdx.x == 0) {
+      const int* W = tile_pass(P, M, c0, sW, sW2, sB, s, ident, F);
+      for (int idx = tid; idx < kNB * kNB; idx += kThreads)
+        st[idx] = W[(idx >> 6) * kWld + (idx & 63)];
+      if (tid < kNB) st[kStCol + tid] = s.col[tid];
+    }
+    grid.sync();
+    ident = false;
+    ++live;
+    cstart = c0 + kTW;
+  }
+  if (!ident) apply_w(P, M, sW, sB, F);
+  if (blockIdx.x == 0 && tid == 0) atomicAdd(hist + live, 1);
 }
 
 }  // namespace
@@ -232,24 +415,41 @@ extern "C" int spasm_row_sweep(void* P, int nb, int M, void* pivcol,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P (64, M) int32 in place, M % 512 == 0; st (2 * 64 + 1 + 64 * 64,)
-// int32 state, zeroed here.  2 * M / 512 launches.
-extern "C" int spasm_row_sweep_tiles(void* P, int M, void* st, int p,
-                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      tile_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kAugBytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaMemsetAsync(st, 0, sizeof(int) * (2 * kNB + 1), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int* Pi = static_cast<int*>(P);
-  int* sti = static_cast<int*>(st);
-  for (int t = 0; t < M / kTW; ++t) {
-    tile_pass<<<1, kPassThreads, kAugBytes, s>>>(Pi, M, t, sti, p);
-    tile_compose<<<M / kCC, kCompThreads, 0, s>>>(Pi, M, t, sti, p);
+// P (64, M) int32 in place, M % 512 == 0, 16-byte aligned; st (kStSize,)
+// int32 scratch, whose col part [4096, 4160) is the pivot column per row
+// (-1: none) on return; hist (65,) int32: hist[live tiles] += 1.  One
+// cooperative launch.
+extern "C" int spasm_row_sweep_tiles(void* P, int M, void* st, void* hist,
+                                     int p, void* stream) {
+  static int max_blocks = 0;            // co-resident blocks on this card
+  if (max_blocks == 0) {
+    int dev = 0, sms = 0, per = 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        tile_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemBytes));
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, tile_sweep,
+                                                        kThreads, kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    max_blocks = per * sms;
   }
+  int blocks = M / kCW;
+  if (blocks > max_blocks) blocks = max_blocks;
+  int* a_P = static_cast<int*>(P);
+  int* a_st = static_cast<int*>(st);
+  int* a_hist = static_cast<int*>(hist);
+  void* args[] = {&a_P, &M, &a_st, &a_hist, &p};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(tile_sweep), dim3(blocks), dim3(kThreads), args,
+      kSmemBytes, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int spasm_tile_state_size() { return kStSize; }
 
 extern "C" int spasm_tile_width() { return kTW; }

@@ -15,7 +15,9 @@ int32 sub-panel, in place, returning each row's pivot column or -1):
   * B3 `row_sweep_tiles`: per TILE_W-column tile, the leftmost nonzero
     within the tile (`_row_sweep_kernel2`, rowrref.py:126); used at
     M >= 4096.  Its pivots depend on the tile width, which is Hopper's
-    (512), not the TPU's 2048.
+    (512), not the TPU's 2048.  The kernel and its plain version are
+    left-looking: the sweep's transform W is built tile by tile (only
+    live tiles are visited) and applied to P once, P <- W P.
 A CUDA tensor launches the kernel (csrc/row_sweep.cu); a CPU tensor
 takes the plain torch version of the same rule.  Any unit-pivot
 echelon basis is valid downstream (qinv carries the columns); under
@@ -70,7 +72,9 @@ def row_sweep(P: torch.Tensor, p: int) -> torch.Tensor:
 
 def row_sweep_tiles(P: torch.Tensor, p: int) -> torch.Tensor:
     """Kernel B3: tile-rule Jordan sweep of P (64, M) int32 in place,
-    M % TILE_W == 0; returns pivcol (64,) int32 on P's device."""
+    M % TILE_W == 0; returns pivcol (64,) int32 on P's device.  One
+    launch per sweep; the card's live-tile count of each sweep goes to
+    `live_tile_histogram(P.device)`."""
     _check_sweep_input(P, p, _SB)
     nb, M = P.shape
     if nb != _SB or M % TILE_W:
@@ -79,17 +83,35 @@ def row_sweep_tiles(P: torch.Tensor, p: int) -> torch.Tensor:
         return _row_sweep_tiles_plain(P, p)
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
+    if P.data_ptr() % 16:
+        raise ValueError("B3 takes a 16-byte aligned panel")
     L = _cuda.lib()
     if L.spasm_tile_width() != TILE_W:
         raise RuntimeError("csrc/row_sweep.cu kTW disagrees with TILE_W")
-    st = torch.empty(2 * _SB + 1 + _SB * _SB, dtype=torch.int32,
+    st = torch.empty(L.spasm_tile_state_size(), dtype=torch.int32,
                      device=P.device)
-    err = L.spasm_row_sweep_tiles(P.data_ptr(), M, st.data_ptr(), p,
-                                  _cuda.stream_ptr(P))
+    err = L.spasm_row_sweep_tiles(P.data_ptr(), M, st.data_ptr(),
+                                  live_tile_histogram(P.device).data_ptr(),
+                                  p, _cuda.stream_ptr(P))
     _cuda.check(err, "kernel B3 (spasm_row_sweep_tiles)")
-    _cuda.launches["B3"] += 2 * (M // TILE_W)
-    return torch.where(st[:_SB] == 1, st[_SB:2 * _SB],
-                       torch.full_like(st[:_SB], -1))
+    _cuda.launches["B3"] += 1
+    return st[_SB * _SB:_SB * _SB + _SB]
+
+
+_live_hist = {}
+
+
+def live_tile_histogram(device) -> torch.Tensor:
+    """(65,) int32 on the card: entry t counts the B3 sweeps there that
+    met t live tiles (tiles where a pivot was found).  Zero it in place
+    to start a count."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _live_hist:
+        _live_hist[device] = torch.zeros(_SB + 1, dtype=torch.int32,
+                                         device=device)
+    return _live_hist[device]
 
 
 def _jordan_step(P: torch.Tensor, k: int, j: int, p: int) -> None:
@@ -114,40 +136,52 @@ def _row_sweep_plain(P: torch.Tensor, p: int) -> torch.Tensor:
     return pivcol
 
 
+def _mm_exact(A: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
+    """Balanced A @ B of balanced int32 operands with at most 64 terms:
+    each product is below 2^30 and each sum below 2^36, so the float64
+    product is exact (on the CPU and on the card)."""
+    return dnorm64(torch.matmul(A.double(), B.double()).to(torch.int64),
+                   p).to(torch.int32)
+
+
 def _row_sweep_tiles_plain(P: torch.Tensor, p: int) -> torch.Tensor:
-    """Plain version of B3, in place: the same tile passes, candidate
-    skips, in-tile leftmost rule and compose order as the kernel."""
+    """Plain version of B3, in place, step for step the kernel's
+    left-looking algorithm: W accumulates the tiles' transforms (W = I
+    at first); the next live tile is the first at or after the current
+    one where a row not yet pivoted of W P has a nonzero; there each such
+    row k in order finds its leftmost nonzero j of W[k] P[:, tile], and
+    the Jordan step is applied to W alone; at the end P <- W P.  The
+    reductions fall where the kernel's do, so every value is the same."""
     nb, M = P.shape
     tw = TILE_W
-    pivoted = [False] * nb
+    W = torch.eye(nb, dtype=torch.int32, device=P.device)
     pivcol = torch.full((nb,), -1, dtype=torch.int32, device=P.device)
-    for t in range(M // tw):
-        c0 = t * tw
-        tile = P[:, c0:c0 + tw]
-        unp = torch.tensor([not f for f in pivoted], device=P.device)
-        if not bool(((tile != 0).any(dim=1) & unp).any()):
-            continue
-        # aug = [tile | I_nb]; its right part accumulates the transform Z
-        aug = torch.cat([tile, torch.eye(nb, dtype=torch.int32,
-                                         device=P.device)], dim=1)
+    col = [-1] * nb
+    cstart = 0
+    while cstart < M and -1 in col:
+        unp = torch.tensor([k for k in range(nb) if col[k] < 0],
+                           device=P.device)
+        Y = _mm_exact(W[unp], P[:, cstart:], p)
+        hit = torch.nonzero((Y != 0).any(dim=0))
+        if hit.numel() == 0:
+            break
+        c0 = (cstart + int(hit[0, 0])) // tw * tw
+        B = P[:, c0:c0 + tw]
         for k in range(nb):
-            if pivoted[k]:
+            if col[k] >= 0:
                 continue
-            nz = torch.nonzero(aug[k, :tw])
+            nz = torch.nonzero(_mm_exact(W[k:k + 1], B, p)[0])
             if nz.numel() == 0:
                 continue
             j = int(nz[0, 0])
-            _jordan_step(aug, k, j, p)
-            pivoted[k] = True
+            g = _mm_exact(W, B[:, j:j + 1], p)[:, 0]
+            v = _mm_exact(W[k:k + 1], B[:, j:j + 1], p)[0, 0]
+            g[k] = 0
+            W = _mulsub(v, W, g[:, None], W[k][None, :], p)
+            col[k] = c0 + j
             pivcol[k] = c0 + j
-        P[:, c0:c0 + tw] = aug[:, :tw]
-        Z = aug[:, tw:].to(torch.int64)[:, :, None]
-        for tt in range(M // tw):
-            if tt != t:
-                sl = slice(tt * tw, (tt + 1) * tw)
-                # Z @ tile as a broadcast sum: CUDA has no int64 matmul
-                ZX = (Z * P[None, :, sl].to(torch.int64)).sum(dim=1)
-                P[:, sl] = dnorm64(ZX, p).to(torch.int32)
+        cstart = c0 + tw
+    P.copy_(_mm_exact(W, P, p))
     return pivcol
 
 

@@ -1,8 +1,9 @@
 """Native (C++) host kernels of the structural pivot search and the
 batched sparse triangular solves, via ctypes.
 
-The source is the JAX package's `spasm_tpu/native/spasm_kernels.cpp`,
-compiled in place with g++ (it includes nothing of JAX or Python) into
+The source is the port's own `spasm_kernels.cpp` beside this file (a
+copy of the JAX package's `spasm_tpu/native/spasm_kernels.cpp`; it
+includes nothing of JAX or Python), compiled with g++ into
 `build/spasm_tpu_torch/native/` under the repository root.  The build
 happens on first use, never at import; when no toolchain is available
 `available()` is False and the call sites run their pure-Python paths.
@@ -26,7 +27,7 @@ from typing import List, Tuple
 import numpy as np
 
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
-_SRC = _ROOT / "spasm_tpu" / "native" / "spasm_kernels.cpp"
+_SRC = pathlib.Path(__file__).resolve().parent / "spasm_kernels.cpp"
 _LIB_DIR = _ROOT / "build" / "spasm_tpu_torch" / "native"
 
 _lib = None

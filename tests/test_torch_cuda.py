@@ -14,12 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_checks import deficient_panel, panel_block, random_waves
+from chip_checks import b3_panel, deficient_panel, panel_block, random_waves
 from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
 from spasm_tpu_torch.certificate import factorization_verify
 from spasm_tpu_torch.dense.elim import dense_lu_device, dense_rref_device
 from spasm_tpu_torch.dense.modp import matmul_digits
-from spasm_tpu_torch.dense.panel import _panel_plain, panel_pivots
+from spasm_tpu_torch.dense.panel import (CLUSTER_ROWS, _panel_plain,
+                                         panel_pivots, panel_variant)
 from spasm_tpu_torch.dense.rowrref import (TILE_W, _row_sweep_plain,
                                            _row_sweep_tiles_plain, row_sweep,
                                            row_sweep_tiles)
@@ -84,6 +85,61 @@ def test_b3_matches_plain(dev, M, p):
     torch.cuda.synchronize()
     assert torch.equal(piv, piv_want)
     assert torch.equal(got, want)
+
+
+B3_CASES = ["full", "rank40", "staircase", "zero", "empty_lead",
+            "row_first_tile_empty"]
+
+
+@pytest.mark.parametrize("case", B3_CASES)
+@pytest.mark.parametrize("M", [1024, 22528])
+@pytest.mark.parametrize("p", [3, 42013, 65269])
+def test_b3_cases_match_plain(dev, case, M, p):
+    """One launch per sweep, bit-equal to the plain version, and the
+    live-tile histogram counts the sweep once."""
+    from spasm_tpu_torch.dense.rowrref import live_tile_histogram
+    P0 = torch.from_numpy(b3_panel(np.random.default_rng([p, M, 7]), case,
+                                   M, p))
+    want = P0.to(dev)
+    piv_want = _row_sweep_tiles_plain(want, p)
+    got = P0.to(dev)
+    hist = live_tile_histogram(dev)
+    hist.zero_()
+    before = _cuda.launches["B3"]
+    piv = row_sweep_tiles(got, p)
+    torch.cuda.synchronize()
+    assert _cuda.launches["B3"] - before == 1
+    assert torch.equal(piv, piv_want)
+    assert torch.equal(got, want)
+    assert int(hist.sum()) == 1
+    if case == "staircase":
+        assert int(hist[M // TILE_W]) == 1
+    if case == "zero":
+        assert int(hist[0]) == 1
+
+
+@pytest.mark.parametrize("rref", [True, False])
+@pytest.mark.parametrize("n", [128, 1024, 4608, CLUSTER_ROWS,
+                               CLUSTER_ROWS + 1])
+@pytest.mark.parametrize("p", [3, 42013, 65269])
+def test_b4_variants_match_plain(dev, n, p, rref):
+    """Both B4 variants, across the threshold, bit-equal to the plain
+    version; each call launches the variant that n selects, once."""
+    X, is_piv = panel_block(np.random.default_rng([n, p, 5]), n, p)
+    Xd = torch.from_numpy(X).to(dev)
+    P0 = Xd[:, 64:128]
+    ip = torch.from_numpy(is_piv).to(dev)
+    want = _panel_plain(P0, ip, p, 64, rref)
+    variant = panel_variant(n)
+    assert variant == ("cluster" if n <= CLUSTER_ROWS else "cooperative")
+    before = dict(_cuda.launches)
+    got = panel_pivots(P0, ip, p, 64, rref)
+    torch.cuda.synchronize()
+    assert _cuda.launches[f"B4 {variant}"] - before[f"B4 {variant}"] == 1
+    other = "cooperative" if variant == "cluster" else "cluster"
+    assert _cuda.launches[f"B4 {other}"] == before[f"B4 {other}"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("rref", [True, False])

@@ -2,6 +2,7 @@
 same inputs: PRNG golden stream, SMS parsing and fingerprints, the
 structural pivot search, the matching-complex generator, and the
 no-JAX import rule.  Tolerance 0 everywhere (exact integers)."""
+import pathlib
 import subprocess
 import sys
 
@@ -13,7 +14,9 @@ import spasm_tpu.gen as jgen
 from spasm_tpu import sio as jsio
 from spasm_tpu.pivots import find_structural_pivots as j_pivots
 
+import spasm_tpu_torch
 import spasm_tpu_torch.gen as tgen
+from spasm_tpu_torch import native as tnative
 from spasm_tpu_torch import sio as tsio
 from spasm_tpu_torch.hashing import PRNG
 from spasm_tpu_torch.pivots import find_structural_pivots as t_pivots
@@ -75,3 +78,16 @@ def test_import_leaves_jax_out():
     r = subprocess.run([sys.executable, "-c", code], cwd=MATRIX.parents[1],
                        capture_output=True, timeout=120)
     assert r.returncode == 0, r.stderr.decode()
+
+
+def test_native_builds_from_the_ports_own_source():
+    """The host library compiles from the copy inside spasm_tpu_torch, and
+    the pivot search it runs matches the JAX package's."""
+    pkg = pathlib.Path(spasm_tpu_torch.__file__).resolve().parent
+    assert tnative._SRC.resolve().is_relative_to(pkg)
+    assert tnative._SRC.exists()
+    assert tnative.available()
+    A, _ = jsio.load_csr(MATRIX / "mat364.sms", 257)
+    B, _ = tsio.load_csr(MATRIX / "mat364.sms", 257)
+    for a, b in zip(j_pivots(A), t_pivots(B)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))

@@ -11,8 +11,11 @@ import torch
 from spasm_tpu.dense.modp import device_field
 from spasm_tpu.dense.rowrref import _rref_rows as j_rref_rows
 
+from chip_checks import b3_panel
+from spasm_tpu_torch.dense.modp import dnorm64
 from spasm_tpu_torch.dense.rowrref import (CompactBasis, TILE_W,
-                                           _rref_rows, _row_sweep_plain,
+                                           _jordan_step, _rref_rows,
+                                           _row_sweep_plain,
                                            _row_sweep_tiles_plain,
                                            rref_rows_device, row_sweep,
                                            row_sweep_tiles)
@@ -126,3 +129,66 @@ def test_wrappers_check_inputs():
         row_sweep_tiles(torch.zeros(32, TILE_W, dtype=torch.int32), 257)
     with pytest.raises(NotImplementedError):
         row_sweep(torch.zeros(4, 8, dtype=torch.int32), 65537)
+
+
+def _tiles_right_looking(P: torch.Tensor, p: int) -> torch.Tensor:
+    """The oracle: B3's first plain version, right-looking, in place.  Per
+    tile in order, skipped when no row not yet pivoted has a nonzero
+    there: sweep [tile | I] by the in-tile leftmost rule, write the tile
+    back, and compose its transform Z into every other tile."""
+    nb, M = P.shape
+    tw = TILE_W
+    pivoted = [False] * nb
+    pivcol = torch.full((nb,), -1, dtype=torch.int32, device=P.device)
+    for t in range(M // tw):
+        c0 = t * tw
+        tile = P[:, c0:c0 + tw]
+        unp = torch.tensor([not f for f in pivoted], device=P.device)
+        if not bool(((tile != 0).any(dim=1) & unp).any()):
+            continue
+        # aug = [tile | I_nb]; its right part accumulates the transform Z
+        aug = torch.cat([tile, torch.eye(nb, dtype=torch.int32,
+                                         device=P.device)], dim=1)
+        for k in range(nb):
+            if pivoted[k]:
+                continue
+            nz = torch.nonzero(aug[k, :tw])
+            if nz.numel() == 0:
+                continue
+            j = int(nz[0, 0])
+            _jordan_step(aug, k, j, p)
+            pivoted[k] = True
+            pivcol[k] = c0 + j
+        P[:, c0:c0 + tw] = aug[:, :tw]
+        Z = aug[:, tw:].to(torch.int64)[:, :, None]
+        for tt in range(M // tw):
+            if tt != t:
+                sl = slice(tt * tw, (tt + 1) * tw)
+                # Z @ tile as a broadcast sum: CUDA has no int64 matmul
+                ZX = (Z * P[None, :, sl].to(torch.int64)).sum(dim=1)
+                P[:, sl] = dnorm64(ZX, p).to(torch.int32)
+    return pivcol
+
+
+B3_CASES = ["full", "rank40", "staircase", "zero", "empty_lead",
+            "row_first_tile_empty"]
+
+
+@pytest.mark.parametrize("case", B3_CASES)
+@pytest.mark.parametrize("M", [1024, 4096, 8192])
+@pytest.mark.parametrize("p", [3, 257, 42013, 65269])
+def test_b3_plain_matches_right_looking(p, M, case):
+    """The left-looking plain B3 against the right-looking oracle:
+    the same pivots and the same panel, bit for bit."""
+    P0 = torch.from_numpy(b3_panel(np.random.default_rng([p, M]), case, M,
+                                   p))
+    want = P0.clone()
+    piv_want = _tiles_right_looking(want, p)
+    got = P0.clone()
+    piv = _row_sweep_tiles_plain(got, p)
+    assert torch.equal(piv, piv_want)
+    assert torch.equal(got, want)
+    if case == "zero":
+        assert not got.any() and bool((piv == -1).all())
+    if case == "staircase":
+        assert int((piv >= 0).sum()) == min(M // TILE_W, 64)
