@@ -1,7 +1,7 @@
 """Inputs and timers shared by the card tests (tests/test_torch_cuda.py)
 and chip_smoke.py, kept beside them and out of the spasm_tpu_torch
-package: random substitution waves for kernel B1, rank-deficient
-sub-panels for the row sweeps B2/B3, column panels for the panel kernel
+package: random substitution waves for kernel B1, sub-panels for the row
+sweeps B2/B3, column panels for the panel kernel
 B4, and CUDA-event timing.
 
 Inputs are made with numpy from an explicit Generator, so a kernel and its
@@ -85,6 +85,32 @@ def b3_panel(rng: np.random.Generator, case: str, M: int,
         X[3, tw + 5] = 9 % p - p * (9 % p > p // 2)
         return X
     raise ValueError(case)
+
+
+def b2_panel(rng: np.random.Generator, case: str, nb: int, M: int,
+             p: int) -> np.ndarray:
+    """(nb, M) int32 input of the leftmost-rule sweep B2: the first nb rows
+    of a 64-row panel, by case:
+      rank40    `deficient_panel` of rank <= 40, first 700 columns zero;
+      zero      all zero;
+      full      dense balanced (full rank);
+      boundary  row i nonzero from column (i % 8) M / 8 on, one column
+                earlier for every third row: pivots on and beside the
+                cluster variant's slice boundaries (M / 8 columns each)."""
+    if case == "rank40":
+        X = deficient_panel(rng, 64, M, 40, p, empty_cols=700)
+    elif case == "zero":
+        X = np.zeros((64, M), np.int32)
+    elif case == "full":
+        X = balanced(rng, (64, M), p).astype(np.int32)
+    elif case == "boundary":
+        X = balanced(rng, (64, M), p)
+        for i in range(64):
+            X[i, :max(0, (i % 8) * (M // 8) - (i % 3 == 0))] = 0
+        X = X.astype(np.int32)
+    else:
+        raise ValueError(case)
+    return np.ascontiguousarray(X[:nb])
 
 
 def panel_block(rng: np.random.Generator, n: int, p: int):

@@ -8,14 +8,17 @@ Phases, each fatal on failure (no failure is caught):
   2. build: compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
      at once) and the host native library (g++) from this checkout, and
      prints the seconds taken;
-  3. kernels: B1 (substitution), B2 and B3 (row sweeps; B3 on a rank-40
-     and on a full-rank panel) and B4 (the panel kernel, RREF and LU mode,
-     the variant its n selects) against their plain torch versions on the
-     card at the main paths' shapes, bit-equal, with both times and each
-     kernel's bound (bytes over 3.35 TB/s or operations over 67 T/s,
-     whichever is larger); B4's phase split (its stamped build: preamble,
-     discovery, minor steps, inverse, Vinv) in both variants, each also
-     bit-equal; matmul_digits on the card against the CPU;
+  3. kernels: B1 (substitution; on a synthetic schedule and on mk13.b5's
+     own, from its structural pivots), B2 (leftmost row sweep: the cluster
+     variant at M = 2048, the pair at M = 22528) and B3 (tiled row sweep,
+     on a rank-40 and on a full-rank panel) and B4 (the panel kernel, RREF
+     and LU mode, the variant its n selects) against their plain torch
+     versions on the card at the main paths' shapes, bit-equal, with both
+     times, launches per call and each kernel's bound (bytes over 3.35
+     TB/s or operations over 67 T/s, whichever is larger); B4's phase
+     split (its stamped build: preamble, discovery, minor steps, inverse,
+     Vinv) in both variants, each also bit-equal; matmul_digits on the
+     card against the CPU;
   4. the rank path, with the launch counts zeroed first: one tests/Matrix
      fixture (M = 2048, so B2 sweeps), bit-equal to the port's own CPU run;
      the `rank` CLI on mk12.b4; mk12.b4 and mk13.b5 (matching-complex
@@ -23,7 +26,8 @@ Phases, each fatal on failure (no failure is caught):
      on the card, cold and warm, held to their published ranks, with the
      histogram of B3's live tiles per sweep over one run (a counter on the
      card); the finisher's stage profile of a third mk13.b5 run.  B1, B2
-     and B3 must have launched in this phase;
+     and B3 must have launched in this phase, B1 once per reduced-basis
+     build and B2 once per sweep;
   5. the dense finishers, with the launch counts zeroed again:
      trefethen_2000 with default options (round 0 leaves a dense Schur
      complement: finish_dense, RREF) and its complete PLUQ, each bit-equal
@@ -92,9 +96,10 @@ def build_phase() -> None:
     for line in _cuda.build_log.splitlines():
         if "entry function" in line:
             mangled = line.split("'")[1]
-            kernel = next((k for k in ("subst_wave", "sweep_find",
-                                       "sweep_update", "tile_sweep",
-                                       "panel_cluster", "panel_coop")
+            kernel = next((k for k in ("subst_waves", "sweep_find",
+                                       "sweep_update", "sweep_cluster",
+                                       "tile_sweep", "panel_cluster",
+                                       "panel_coop")
                            if k in mangled), mangled)
             if "ILb1E" in mangled:      # the template with phase stamps
                 kernel += " (stamped)"
@@ -154,6 +159,7 @@ def _b4_ops(P0, is_piv, rref: bool) -> int:
     return ops
 
 
+B2_KERNELS = {"cluster": "sweep_cluster", "pair": "sweep_find+sweep_update"}
 B4_PHASES = ("preamble copy", "discovery", "minor steps",
              "Fermat inverse + Z", "Vinv")
 
@@ -179,16 +185,82 @@ def b4_phase_split(P0, ip, rref: bool, variant: str, want, mode: str):
         + f"; total {(st[11] - st[6]) / 1e3:.3f} us")
 
 
-def kernel_phase() -> dict:
+def b1_line(label, R0, waves, reps: int) -> dict:
+    """B1 (one launch per call) against its plain version on R0 and one
+    schedule: held bit-equal, timed (each timed call re-substitutes a
+    copy in place), with the bound from this schedule's own bytes: every
+    live row read and written once, every referenced row read once, the
+    schedule arrays read once; a product and a sum per reference and
+    column."""
+    from chip_checks import cuda_ms
+    from spasm_tpu_torch import _cuda
+    from spasm_tpu_torch.dense.subst import _subst_waves_plain, subst_waves
+    rows, ref_ptr, refs, coef, bounds = waves
+    M = R0.shape[1]
+    got = R0.clone()
+    before = _cuda.launches["B1"]
+    subst_waves(got, *waves, P)
+    per_call = _cuda.launches["B1"] - before
+    want = R0.clone()
+    _subst_waves_plain(want, *waves, P)
+    touched = np.union1d(rows, refs).size + rows.size
+    nbytes = touched * M * R0.element_size() + sum(a.nbytes for a in waves)
+    rec = _record("B1 subst_waves", "spasm_tpu_torch/csrc/subst.cu",
+                  "spasm_tpu/dense/subst_pallas.py:68", [got], [want],
+                  nbytes, 2 * refs.size * M)
+    del want
+    ms = cuda_ms(lambda: subst_waves(got, *waves, P), reps)
+    plain_ms = cuda_ms(lambda: _subst_waves_plain(got, *waves, P), 1)
+    log(f"B1 {label}: {rows.size} live rows, {len(bounds) - 1} waves, "
+        f"{refs.size / max(rows.size, 1):.2f} references per row, M={M}; "
+        f"one-launch variant, {per_call} launch per call; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), bit-equal")
+    if per_call != 1:
+        sys.exit(f"chip_smoke: B1 made {per_call} launches in one call")
+    return dict(rec, ms=ms, plain_ms=plain_ms)
+
+
+def b1_real_schedule(A) -> dict:
+    """B1 on mk13.b5's own schedule: the structural pivots of round 0,
+    the reduced basis's waves (`subst_schedule`), R of the basis's shape
+    filled with seeded balanced values."""
+    from spasm_tpu_torch import EchelonizeOptions
+    from spasm_tpu_torch.dense.reduced import ReducedBasis, subst_schedule
+    from spasm_tpu_torch.echelonize import _Engine
+    dev = torch.device("cuda")
+    eng = _Engine(A, EchelonizeOptions(), dev)
+    eng.extract_structural(A)
+    qfree = np.nonzero(eng.U.qinv < 0)[0]
+    rb = ReducedBasis(A.m, P, qfree, eng.U.n, dev)
+    offs, cols, vals, pivcols, groups = eng.U.flat_store()
+    pivmap = np.full(A.m + 1, rb.npad - 1, np.int64)
+    pivmap[pivcols] = np.arange(len(pivcols))
+    waves = subst_schedule(offs, cols, vals, pivcols, groups, pivmap,
+                           rb.npad)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    R0 = torch.randint(-(P // 2), P // 2 + 1, (rb.npad, rb.M),
+                       dtype=torch.int16, device=dev, generator=gen)
+    R0[-1] = 0
+    rec = b1_line(f"on mk13.b5's own schedule (R {rb.npad} x {rb.M})", R0,
+                  waves, 3)
+    del R0
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kernel_phase(mats) -> dict:
     from chip_checks import (b3_panel, cuda_ms, deficient_panel, panel_block,
                              random_waves)
     from spasm_tpu_torch.dense.modp import matmul_digits
     from spasm_tpu_torch.dense.panel import (_panel_plain, panel_pivots,
                                              panel_variant)
+    from spasm_tpu_torch import _cuda
     from spasm_tpu_torch.dense.rowrref import (_row_sweep_plain,
                                                _row_sweep_tiles_plain,
-                                               row_sweep, row_sweep_tiles)
-    from spasm_tpu_torch.dense.subst import _subst_waves_plain, subst_waves
+                                               row_sweep, row_sweep_tiles,
+                                               row_sweep_variant)
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     out = {}
@@ -199,32 +271,20 @@ def kernel_phase() -> dict:
     R0 = torch.from_numpy(rng.integers(-(P // 2), P // 2 + 1, (n + 64, M),
                                        dtype=np.int16)).to(dev)
     R0[n:] = 0
-    got, want = R0.clone(), R0.clone()
-    subst_waves(got, *waves, P)
-    _subst_waves_plain(want, *waves, P)
-    # R read and written once, the wave arrays read; a product and a sum
-    # per reference and column
-    nbytes = 2 * R0.numel() * R0.element_size() + sum(a.nbytes
-                                                      for a in waves)
-    rec = _record("B1 subst_wave", "spasm_tpu_torch/csrc/subst.cu",
-                  "spasm_tpu/dense/subst_pallas.py:68", [got], [want],
-                  nbytes, 2 * waves[2].size * M)
-    # the sweep runs in place: each timed call re-substitutes `work`
-    work = R0.clone()
-    ms = cuda_ms(lambda: subst_waves(work, *waves, P), 3)
-    plain_ms = cuda_ms(lambda: _subst_waves_plain(work, *waves, P), 1)
-    out["B1"] = dict(rec, ms=ms, plain_ms=plain_ms)
-    log(f"B1 ({n} rows, 300 waves, M={M}): kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), bit-equal")
-    del R0, got, want, work
+    b1_line("synthetic", R0, waves, 3)
+    del R0
+    out["B1"] = b1_real_schedule(mats["mk13.b5"])
 
     def sweeps(name, kern, plain, M, empty, replaces, full=False):
         X = (b3_panel(rng, "full", M, P) if full else
              deficient_panel(rng, 64, M, 40, P, empty_cols=empty))
         P0 = torch.from_numpy(X).to(dev)
         got, want = P0.clone(), P0.clone()
-        piv, piv_w = kern(got, P), plain(want, P)
+        before = dict(_cuda.launches)
+        piv = kern(got, P)
+        per_call = {k: v - before[k] for k, v in _cuda.launches.items()
+                    if v != before[k]}
+        piv_w = plain(want, P)
         # the panel read and written once; each pivot's Jordan step
         # updates every element (two products and a difference)
         npiv = int((piv_w >= 0).sum())
@@ -234,17 +294,19 @@ def kernel_phase() -> dict:
         work = P0.clone()
         ms = cuda_ms(lambda: kern(work.copy_(P0), P), 10)
         plain_ms = cuda_ms(lambda: plain(work.copy_(P0), P), 2)
-        log(f"{name} (64, {M}){' full rank' if full else ''}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms (each with one panel "
-            f"copy), bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
-            f"{npiv} pivots, bit-equal")
+        log(f"{name} (64, {M}){' full rank' if full else ''}: launches per "
+            f"call {per_call}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+            f"(each with one panel copy), bound {rec['bound_ms']:.5f} ms "
+            f"({rec['bound_by']}), {npiv} pivots, bit-equal")
         return dict(rec, ms=ms, plain_ms=plain_ms)
 
-    out["B2"] = sweeps("B2 sweep_find+sweep_update", row_sweep,
-                       _row_sweep_plain, 2048, 300,
-                       "spasm_tpu/dense/rowrref.py:55")
-    sweeps("B2 sweep_find+sweep_update", row_sweep, _row_sweep_plain,
-           22528, 3000, "spasm_tpu/dense/rowrref.py:55")
+    for M in (2048, 22528):
+        variant = row_sweep_variant(64, M)
+        rec = sweeps(f"B2 {B2_KERNELS[variant]}", row_sweep,
+                     _row_sweep_plain, M, 300 if M == 2048 else 3000,
+                     "spasm_tpu/dense/rowrref.py:55")
+        if M == 2048:                  # the main path's width
+            out["B2"] = rec
     out["B3"] = sweeps("B3 tile_sweep", row_sweep_tiles,
                        _row_sweep_tiles_plain, 22528, 3000,
                        "spasm_tpu/dense/rowrref.py:126")
@@ -329,14 +391,8 @@ def _launched(counts: dict, keys, what: str) -> None:
         sys.exit(f"chip_smoke: kernels never launched on {what}: {missing}")
 
 
-def rank_path_phase() -> dict:
-    from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
-    from spasm_tpu_torch.dense.rowrref import live_tile_histogram
+def matching_complexes() -> dict:
     from spasm_tpu_torch.gen import matching_complex_boundary
-    fixture = HERE / "tests" / "Matrix" / "trefethen_500.sms"
-    A, _ = sio.load_csr(fixture, P)
-    small = EchelonizeOptions(device_dense_min=0)
-    ref = echelonize(A, small, device="cpu")
     mats = {}
     for tag, (nn, j, _) in MK.items():
         t0 = time.time()
@@ -346,13 +402,25 @@ def rank_path_phase() -> dict:
         mats[tag] = B
         log(f"{tag}: {B.n} x {B.m}, {B.nnz} nnz, generated in "
             f"{time.time() - t0:.1f} s")
+    return mats
+
+
+def rank_path_phase(mats) -> dict:
+    from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
+    from spasm_tpu_torch.dense.rowrref import live_tile_histogram
+    fixture = HERE / "tests" / "Matrix" / "trefethen_500.sms"
+    A, _ = sio.load_csr(fixture, P)
+    small = EchelonizeOptions(device_dense_min=0)
+    ref = echelonize(A, small, device="cpu")
 
     _cuda.reset_launches()
     fact = echelonize(A, small, device="cuda")
     if not (fact.r == ref.r == 500 and _same_U(fact, ref)):
         sys.exit("chip_smoke: trefethen_500 on the card differs from the CPU")
     log(f"trefethen_500: rank {fact.r}, qinv and U bit-equal to the CPU run, "
-        f"B2 launches {_cuda.launches['B2']}")
+        f"{_cuda.calls['B2']} B2 sweeps, {_cuda.launches['B2']} B2 launches "
+        f"({_cuda.launches['B2 cluster']} cluster, "
+        f"{_cuda.launches['B2 pair']} pair)")
     if _cuda.launches["B2"] == 0:
         sys.exit("chip_smoke: B2 never launched on trefethen_500")
     # the rank tool, as a user runs it: the matrix on standard input
@@ -384,6 +452,13 @@ def rank_path_phase() -> dict:
         {k: round(v, 4) for k, v in fact.profile.items()}))
     counts = dict(_cuda.launches)
     _launched(counts, ("B1", "B2", "B3"), "the rank path")
+    calls = dict(_cuda.calls)
+    log(f"the rank path: B1 {counts['B1']} launches over {calls['B1']} "
+        f"reduced-basis builds, B2 {counts['B2']} launches over "
+        f"{calls['B2']} sweeps")
+    for k, what in (("B1", "build"), ("B2", "sweep")):
+        if counts[k] > calls[k]:
+            sys.exit(f"chip_smoke: {k} made more than one launch per {what}")
     return counts
 
 
@@ -461,8 +536,9 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     build_phase()
     logging.getLogger("spasm_tpu_torch").setLevel(logging.WARNING)
-    kernels = kernel_phase()
-    counts = rank_path_phase()
+    mats = matching_complexes()
+    kernels = kernel_phase(mats)
+    counts = rank_path_phase(mats)
     counts4 = dense_finisher_phase()
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "spasm_tpu"))

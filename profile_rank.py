@@ -34,9 +34,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 REPS = 3
-GROUPS = (("B1 subst_wave", ("subst_wave",)),
+GROUPS = (("B1 subst_waves", ("subst_waves",)),
           ("B4 panel_cluster/panel_coop", ("panel_cluster", "panel_coop")),
-          ("B2 sweep_find+sweep_update", ("sweep_find", "sweep_update")),
+          ("B2 sweep_cluster / sweep_find+sweep_update",
+           ("sweep_cluster", "sweep_find", "sweep_update")),
           ("B3 tile_sweep", ("tile_sweep",)),
           ("int8 GEMM (torch._int_mm)", ("gemm", "cutlass", "igemm")),
           ("index/gather/scatter", ("index", "scatter", "gather")),

@@ -2,10 +2,11 @@
 //
 // One header for the reductions the TPU kernels each carried a copy of:
 // reduce31 is `_reduce31` (spasm_tpu/dense/sweep_pallas.py:47, copied
-// at subst_pallas.py:57), used by B1 and B2; Fp (below) serves B3 and B4,
-// and its Fermat inverse takes the place of `_modinv32`
-// (sweep_pallas.py:60).  Scope: the d == 2 digit tier, p <= 65279, where
-// 2 * (p/2)^2 < 2^31 so every division-free update fits an int32 lane.
+// at subst_pallas.py:57), used by B1 and B2's pair variant; Fp (below)
+// serves B2's cluster variant, B3 and B4, and its Fermat inverse takes the
+// place of `_modinv32` (sweep_pallas.py:60).  Scope: the d == 2 digit
+// tier, p <= 65279, where 2 * (p/2)^2 < 2^31 so every division-free
+// update fits an int32 lane.
 #pragma once
 
 #include <cstdint>
@@ -30,8 +31,9 @@ __device__ __forceinline__ int reduce31(int x, int p, float invp) {
 }
 
 // The field with its reduction constants, for the redesigned kernels
-// (B3 and B4), which reduce on the integer and FP64 pipes and keep the
-// float32 conversions of reduce31 (a quarter-rate unit) off their paths.
+// (B2's cluster variant, B3 and B4), which reduce on the integer and FP64
+// pipes and keep the float32 conversions of reduce31 (a quarter-rate
+// unit) off their paths.
 struct Fp {
   int p, half;
   unsigned mu, off;

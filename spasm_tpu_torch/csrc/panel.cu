@@ -59,6 +59,7 @@
 
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "modp.cuh"
 
 namespace cg = cooperative_groups;
@@ -261,39 +262,14 @@ __host__ __device__ inline size_t cluster_smem(int R) {
   return ((pan > m ? pan : m) + 15) & ~static_cast<size_t>(15);
 }
 
-// The exchange of a discovery step: each block's candidate (its first
-// available row with a nonzero in column t, or none) as one 144-byte
-// message, copied by the Tensor Memory Accelerator's bulk copy into every
-// block of the cluster (16 copies, one per lane), whose mbarrier counts
-// the bytes in.  (Plain DSMEM stores with a remote arrive per store, and
-// one cluster barrier per step, were both slower.)
+// The exchange of a discovery step (cluster.cuh): each block's candidate
+// (its first available row with a nonzero in column t, or none) as one
+// 144-byte message, sent to every block of the cluster.
 struct __align__(16) Candidate {
   int row;                              // n: none
   int pad[3];
   short val[kNB];
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ unsigned cluster_addr(unsigned a, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
 
 template <bool kStamp>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -328,11 +304,7 @@ panel_cluster(const int* __restrict__ P, long long ld, int n, int R,
   for (int i = tid; i < R; i += kThreads)
     piv[i] = i < Rb ? piv_in[row0 + i] : 1;
   if (tid < 3) s_loc[tid] = R;
-  if (tid < 2) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                 :: "r"(smem_addr(&s_bar[tid])));
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  if (tid < 2) spasm::mbar_init(&s_bar[tid]);
   // S = min(8, 1024 / Rb) threads per row: thread tid < S * rstep
   // (rstep = 1024 / S) serves rows tid / S + k * rstep; its lane s = tid %
   // S scans (s == 0) and updates columns t + 1 + s, t + 1 + s + S, ... —
@@ -365,27 +337,9 @@ panel_cluster(const int* __restrict__ P, long long ld, int n, int R,
       const int l = s_loc[sb];
       s_out[b].val[tid] = l < R ? Pt[tid * Rld + l] : 0;
       if (tid == 0) s_out[b].row = l < R ? row0 + l : n;
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      asm volatile("bar.sync 1, 64;" ::: "memory");
-      const unsigned bar = smem_addr(&s_bar[b]);
-      if (tid == 0)
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-            :: "r"(bar), "r"(static_cast<int>(sizeof(Candidate)) * kCluster)
-            : "memory");
-      if (tid < kCluster) {             // lane d copies to block d
-        asm volatile(
-            "cp.async.bulk.shared::cluster.shared::cta.mbarrier::"
-            "complete_tx::bytes [%0], [%1], %2, [%3];"
-            :: "r"(cluster_addr(smem_addr(&s_in[b][me]), tid)),
-               "r"(smem_addr(&s_out[b])),
-               "r"(static_cast<int>(sizeof(Candidate))),
-               "r"(cluster_addr(bar, tid))
-            : "memory");
-        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      }
+      spasm::send_to_all<kCluster>(&s_out[b], &s_in[b][me], &s_bar[b]);
     }
-    mbar_wait(smem_addr(&s_bar[b]), (t >> 1) & 1);
+    spasm::mbar_wait(spasm::smem_addr(&s_bar[b]), (t >> 1) & 1);
     int r = lane < kCluster ? s_in[b][lane].row : n;
     r = __reduce_min_sync(0xffffffffu, r);
     if (tid == 0) s_lr[t] = r < n ? r : -1;
@@ -412,8 +366,7 @@ panel_cluster(const int* __restrict__ P, long long ld, int n, int R,
   }
   __syncthreads();
   for (int i = tid; i < Rb; i += kThreads) piv_out[row0 + i] = piv[i];
-  if (tid < kCluster)
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  spasm::sends_done<kCluster>();
   if (!lead) return;
   __syncthreads();
   stamp<kStamp>(stamps, 2);

@@ -6,16 +6,37 @@
 // k, v = P[k, j], g = P[:, j] with g[k] = 0, then P <- v * P - g (x) P[k]
 // reduced mod p (|.| <= 2 (p/2)^2 < 2^31 for p <= 65279).
 //
-// B2 `spasm_row_sweep` replaces `_row_sweep_kernel`
-// (spasm_tpu/dense/rowrref.py:55, pallas_call at :286): j is the leftmost
-// nonzero of row k over the whole width.  On the TPU the panel sat in
-// VMEM; on Hopper 64 x 22528 x 4 B = 5.8 MB is far above a block's
-// 227 KB, so the columns spread over the grid and each step is two
-// launches: a one-block find of j (plus the gather of the pivot column
-// g), then a column-parallel update in which each thread owns one column
-// for all rows (it reads P[k, c] before writing any row, so row k's own
-// update cannot race).  The panel (5.8 MB) stays in the 50 MB L2 between
-// steps; the bound is the 2 x nb launches per sweep (latency), not bytes.
+// B2 replaces `_row_sweep_kernel` (spasm_tpu/dense/rowrref.py:55,
+// pallas_call at :286): j is the leftmost nonzero of row k over the whole
+// width.  On the TPU the panel sat in VMEM.  Two variants, chosen by
+// (nb, M) alone (dense/rowrref.py `row_sweep_variant`):
+//   * `spasm_row_sweep_cluster` (nb <= 64, M <= kCB * kCColsMax = 8192;
+//     the main path's M = 2048): ONE launch per sweep.  A cluster of kCB
+//     = 8 blocks holds the panel in shared memory as int16 (p <= 65279
+//     keeps every balanced residue in int16), each block a slice of W =
+//     M / 8 columns (256 at M = 2048), two columns per 32-bit word.  Step
+//     k: each block has the leftmost nonzero of row k in its slice (found
+//     while step k - 1 updated that row), and sends one candidate -- the column, or
+//     none, and that column's 64 values -- to every block of the cluster
+//     (the 144-byte message and TMA exchange of cluster.cuh, as in B4);
+//     every block takes the smallest column, which gives it j, v and g
+//     without a second exchange, and applies P <- v P - g (x) P[k] to its
+//     own slice.  One exchange and one block barrier per step; a
+//     cluster.sync() at the start and at the end, so no block exits while
+//     another may still copy into it.  Eight blocks rather than four:
+//     the update (64 x W elements a step, ~30 instructions a word pair) is
+//     bound by one SM's issue rate, so eight halve it, and eight is the
+//     largest portable cluster.  Bound: the 64 dependent steps (an
+//     exchange is ~1.8 us, B4's measurement) plus each step's slice
+//     update, not the panel's bytes (0.5 MB at M = 2048).
+//   * the pair `sweep_find` + `sweep_update` (any nb <= 1024 and M, for
+//     shapes beyond the cluster): 5.8 MB at M = 22528 is far above a
+//     block's 227 KB, so the columns spread over the grid and each step
+//     is two launches: a one-block find of j (plus the gather of the
+//     pivot column g), then a column-parallel update in which each thread
+//     owns one column for all rows (it reads P[k, c] before writing any
+//     row, so row k's own update cannot race).  The panel stays in the 50
+//     MB L2 between steps; the bound is the 2 x nb launches per sweep.
 //
 // B3 `spasm_row_sweep_tiles` replaces `_row_sweep_kernel2`
 // (rowrref.py:126, pallas_call at :302): the tile rule.  Tiles of kTW =
@@ -54,13 +75,14 @@
 
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "modp.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-// ---------------------------------------------------------------- B2 ----
+// ----------------------------------------------------------- B2 pair ----
 
 constexpr int kFindThreads = 1024;
 constexpr int kUpdThreads = 256;
@@ -397,10 +419,164 @@ tile_sweep(int* __restrict__ P, int M, int* st, int* hist, int p) {
   if (blockIdx.x == 0 && tid == 0) atomicAdd(hist + live, 1);
 }
 
+// -------------------------------------------------------- B2 cluster ----
+
+constexpr int kCB = 8;                  // blocks per cluster
+constexpr int kCColsMax = 1024;         // columns per block
+constexpr int kCThreads = 1024;
+constexpr int kPairT = 128;             // threads per row group
+constexpr int kGroups = kCThreads / kPairT;
+
+// A step's message: the block's leftmost nonzero column of row k (M:
+// none) and that column's 64 values.
+struct __align__(16) ColCandidate {
+  int col;
+  int pad[3];
+  short val[kNB];
+};
+
+// Columns per block, even (two int16 columns per 32-bit word).
+__host__ __device__ inline int cluster_width(int M) {
+  return ((M + kCB - 1) / kCB + 1) & ~1;
+}
+
+__host__ __device__ inline size_t cluster_sweep_smem(int M) {
+  return sizeof(int) * (kNB + 2) * (cluster_width(M) / 2);
+}
+
+__device__ __forceinline__ int lo16(int w) { return static_cast<short>(w); }
+__device__ __forceinline__ int hi16(int w) { return w >> 16; }
+__device__ __forceinline__ int pack16(int lo, int hi) {
+  return static_cast<int>((static_cast<unsigned>(lo) & 0xffffu) |
+                          (static_cast<unsigned>(hi) << 16));
+}
+
+// Row k of the slice: its words into su (the step's snapshot), and this
+// block's leftmost nonzero column in it atomicMin'd into *loc.
+__device__ __forceinline__ void scan_row(const int* S, int npairs, int k,
+                                         int* su, int* loc, int W) {
+  int jl = W;
+  for (int q = threadIdx.x; q < npairs; q += kCThreads) {
+    const int w = S[k * npairs + q];
+    su[q] = w;
+    if (w != 0 && jl == W) jl = lo16(w) != 0 ? 2 * q : 2 * q + 1;
+  }
+  jl = __reduce_min_sync(0xffffffffu, jl);
+  if ((threadIdx.x & 31) == 0 && jl < W) atomicMin(loc, jl);
+}
+
+__global__ void __launch_bounds__(kCThreads, 1)
+sweep_cluster(int* __restrict__ P, int nb, int M, int* __restrict__ pivcol,
+              int p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ int4 smem4[];
+  const int W = cluster_width(M);
+  const int npairs = W / 2;
+  int* S = reinterpret_cast<int*>(smem4);       // (64, npairs) words
+  int* s_u = S + kNB * npairs;                  // [2][npairs]: row k, k + 1
+  // per step parity: this block's message, and every block's
+  __shared__ ColCandidate s_out[2];
+  __shared__ ColCandidate s_in[2][kCB];
+  __shared__ __align__(8) unsigned long long s_bar[2];
+  __shared__ int s_loc[3], s_piv[kNB];          // s_loc rotates over 3 steps
+  const spasm::Fp F(p);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int me = static_cast<int>(cluster.block_rank());
+  const int c0 = me * W;
+  const int Wb = max(0, min(W, M - c0));        // this block's columns
+  for (int idx = tid; idx < kNB * npairs; idx += kCThreads) {
+    const int i = idx / npairs;
+    const int c = 2 * (idx - i * npairs);
+    const int* src = P + static_cast<int64_t>(i) * M + c0 + c;
+    const int lo = i < nb && c < Wb ? src[0] : 0;
+    const int hi = i < nb && c + 1 < Wb ? src[1] : 0;
+    S[idx] = pack16(lo, hi);
+  }
+  if (tid < 3) s_loc[tid] = W;
+  if (tid < 2) spasm::mbar_init(&s_bar[tid]);
+  __syncthreads();
+  scan_row(S, npairs, 0, s_u, &s_loc[0], W);
+  cluster.sync();                       // every block's mbarriers are set
+  // the update: thread tid serves rows rg, rg + 8, ... at words qt,
+  // qt + 128, ... (a warp on 32 consecutive words of one row)
+  const int rg = tid / kPairT;
+  const int qt = tid % kPairT;
+  // Step k starts with row k's snapshot in s_u[k & 1] and the block's
+  // candidate in s_loc[k % 3]; the update of row k + 1 writes that row's
+  // snapshot and candidate for step k + 1 (a plain scan after a step
+  // without pivot), so a step has one exchange and one block barrier.
+  for (int k = 0; k < nb; ++k) {
+    const int b = k & 1;
+    const int sb = k % 3;
+    const int sn = sb == 2 ? 0 : sb + 1;
+    // s_loc[(k + 2) % 3] was last read at step k - 1, before the last
+    // block barrier; it takes its atomicMins at step k + 1
+    if (tid == 0) s_loc[sn == 2 ? 0 : sn + 1] = W;
+    const int* su = s_u + b * npairs;
+    int* sun = s_u + (b ^ 1) * npairs;
+    if (tid < kNB) {                    // the message: warps 0 and 1
+      const int l = s_loc[sb];
+      int x = 0;
+      if (l < W) {
+        const int w = S[tid * npairs + (l >> 1)];
+        x = (l & 1) ? hi16(w) : lo16(w);
+      }
+      s_out[b].val[tid] = static_cast<short>(x);
+      if (tid == 0) s_out[b].col = l < W ? c0 + l : M;
+      spasm::send_to_all<kCB>(&s_out[b], &s_in[b][me], &s_bar[b]);
+    }
+    spasm::mbar_wait(spasm::smem_addr(&s_bar[b]), (k >> 1) & 1);
+    int j = lane < kCB ? s_in[b][lane].col : M;
+    j = __reduce_min_sync(0xffffffffu, j);
+    if (tid == 0) s_piv[k] = j < M ? j : -1;
+    if (j >= M) {                       // cluster-uniform: row k is zero
+      if (k + 1 < nb) scan_row(S, npairs, k + 1, sun, &s_loc[sn], W);
+      __syncthreads();
+      continue;
+    }
+    const short* gcol = s_in[b][j / W].val;
+    const int v = gcol[k];
+    int jl = W;                         // row k + 1's leftmost, this thread
+    for (int i = rg; i < nb; i += kGroups) {
+      const int g = i == k ? 0 : gcol[i];
+      int* row = S + i * npairs;
+      for (int q = qt; q < npairs; q += kPairT) {
+        const int w = row[q];
+        const int u = su[q];
+        const int x = pack16(F.red(v * lo16(w) - g * lo16(u)),
+                             F.red(v * hi16(w) - g * hi16(u)));
+        row[q] = x;
+        if (i == k + 1) {
+          sun[q] = x;
+          if (x != 0 && jl == W) jl = lo16(x) != 0 ? 2 * q : 2 * q + 1;
+        }
+      }
+    }
+    jl = __reduce_min_sync(0xffffffffu, jl);
+    if (lane == 0 && jl < W) atomicMin(&s_loc[sn], jl);
+    __syncthreads();                    // the slice, s_u and s_loc, for k + 1
+    // s_in[b] is written again (step k + 2) only after every block has
+    // passed step k + 1's exchange, which needs this block's message of
+    // step k + 1, sent after this barrier; by then this block's copies of
+    // step k, and so their reads of s_out[b], are complete
+  }
+  for (int idx = tid; idx < nb * npairs; idx += kCThreads) {
+    const int i = idx / npairs;
+    const int c = 2 * (idx - i * npairs);
+    int* dst = P + static_cast<int64_t>(i) * M + c0 + c;
+    if (c < Wb) dst[0] = lo16(S[idx]);
+    if (c + 1 < Wb) dst[1] = hi16(S[idx]);
+  }
+  if (me == 0 && tid < nb) pivcol[tid] = s_piv[tid];
+  spasm::sends_done<kCB>();
+  cluster.sync();                       // no copy still targets this block
+}
+
 }  // namespace
 
-// P (nb, M) int32 in place, nb <= 1024; pivcol (nb,) int32; st (2 + nb,)
-// int32 scratch.  2 * nb launches.
+// B2, the pair: P (nb, M) int32 in place, nb <= 1024; pivcol (nb,) int32;
+// st (2 + nb,) int32 scratch.  2 * nb launches.
 extern "C" int spasm_row_sweep(void* P, int nb, int M, void* pivcol,
                                void* st, int p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -453,3 +629,40 @@ extern "C" int spasm_row_sweep_tiles(void* P, int M, void* st, void* hist,
 extern "C" int spasm_tile_state_size() { return kStSize; }
 
 extern "C" int spasm_tile_width() { return kTW; }
+
+// B2, the cluster: P (nb, M) int32 in place, balanced, 1 <= nb <= 64,
+// 1 <= M <= spasm_row_sweep_cluster_cols(); pivcol (nb,) int32.  One
+// launch (a cluster of kCB blocks).
+extern "C" int spasm_row_sweep_cluster(void* P, int nb, int M, void* pivcol,
+                                       int p, void* stream) {
+  if (nb < 1 || nb > kNB || M < 1 || M > kCB * kCColsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sweep_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(cluster_sweep_smem(kCB * kCColsMax)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCB);
+  cfg.blockDim = dim3(kCThreads);
+  cfg.dynamicSmemBytes = cluster_sweep_smem(M);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCB;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, sweep_cluster, static_cast<int*>(P), nb, M,
+                         static_cast<int*>(pivcol), p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Most columns the cluster variant takes.
+extern "C" int spasm_row_sweep_cluster_cols() { return kCB * kCColsMax; }

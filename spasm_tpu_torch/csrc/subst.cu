@@ -9,20 +9,59 @@
 //
 // Order: the rows come grouped in waves.  Rows of one wave never reference
 // each other and only reference rows of earlier waves (the topological
-// levels of the U rows), so one launch per wave needs no synchronisation
-// inside it.  The TPU kernel's 8-rows-in-flight DMA schedule and its
-// 16-reference split existed for Mosaic's DMA pipeline and are gone.
+// levels of the U rows).
 //
-// Layout: grid (rows of the wave) x (column chunks of 512).  Each thread
-// owns 8 consecutive int16 columns (one 16-byte load per referenced row)
-// and walks the row's references from a CSR (ref_ptr, refs, coef).  The
-// 512-column chunk keeps small tail waves wide enough to occupy the SMs.
+// The fact the design rests on: column c of R[k] depends only on column c
+// of the rows k references, so a chunk of columns is a complete,
+// independent substitution problem for the whole schedule.  The first
+// version launched one grid per wave (1135 launches for mk13.b5's
+// schedule), and every wave drained the card before the next could
+// start.  This one is
+// ONE launch per build: the grid is the column chunks, kCols = 64 int16
+// columns per block (352 blocks at M = 22528, 320 at M = 20480), and each
+// block walks every wave in order with one __syncthreads() between waves.
+// No other block ever reads a block's columns: there is no grid barrier,
+// no cluster and no flag.  Three 384-thread blocks fit an SM (56
+// registers), so all 352 are resident at once on the 132 SMs, ~1024
+// threads an SM.
 //
-// Arithmetic: nred products (|coef * R| <= (p/2)^2) accumulate in int32,
-// with nred * (p/2)^2 < 2^31 - p, before each Barrett reduction.
+// Inside a wave, a row slot of 8 lanes takes one row at a time, rows
+// strided over the block's 48 slots; each lane owns 8 consecutive columns
+// (one 16-byte load per referenced row).  The row's own load and its
+// first kU = 4 reference loads are issued together before the first
+// product.  While they are in flight the slot fetches the indices of its
+// next row (row id and reference range) -- across the wave barrier too,
+// since the index arrays are read-only -- so a row costs one round trip
+// for the indices' references and one for R, not three.
 //
-// Bound: memory.  A row costs (refs + 2) * M * 2 bytes of traffic, reads
-// of referenced rows mostly hitting L2 within a wave.
+// Slower or no faster in development, on the same two schedules: 128- and
+// 256-column blocks, two rows per slot, and cp.async double buffering of
+// the next row into shared memory.  The sweep reads scattered 128-byte row
+// segments and is bound by the memory system's rate for them, not by the
+// loads in flight.
+//
+// Traps:
+//   * R is read and written in the same launch.  It is never read through
+//     `const __restrict__`, __ldg or any other non-coherent path, which
+//     may return data from before an earlier wave's store: R's loads are
+//     plain loads through a pointer the kernel also stores through.
+//   * __syncthreads() makes the block's global stores visible to the
+//     block; that is all the ordering the design needs (a block's 128-byte
+//     column segment of a row is one cache line no other block touches).
+//   * A wave's dependent chain (row loads -> reduce -> store -> barrier)
+//     is ~1-2 us, so the schedule's depth (1135 waves on mk13.b5) puts a
+//     floor of ~1-2 ms under any wave-ordered design.
+//   * L2: all blocks advance through the waves at about the same pace, so
+//     the rows of recent waves stay in the 50 MB L2 across blocks.
+//
+// Arithmetic: nred products (|coef * R| <= (p/2)^2) are subtracted from
+// the int32 accumulator, which starts balanced, with nred * (p/2)^2 <
+// 2^31 - p, before each Barrett reduction (spasm::reduce31).
+//
+// Bound: memory.  Every live row read and written once and every
+// referenced row read once (~0.54 ms on chip_smoke's synthetic schedule,
+// ~3 ms on mk13.b5's); the references' re-reads by every row that names
+// them put ~5.4 GB (synthetic) and ~18 GB (mk13.b5) on HBM.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -31,76 +70,138 @@
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kVec = 8;                     // int16 columns per thread
-constexpr int kCols = kThreads * kVec;      // 512 columns per block
+constexpr int kThreads = 384;
+constexpr int kVec = 8;                     // int16 columns per lane
+constexpr int kCols = 64;                   // columns per block
+constexpr int kLanes = kCols / kVec;        // lanes per row slot (8)
+constexpr int kSlots = kThreads / kLanes;   // row slots per block (48)
+constexpr int kU = 4;                       // references loaded per round
 
-__global__ void __launch_bounds__(kThreads)
-subst_wave(int16_t* __restrict__ R, int M,
-           const int32_t* __restrict__ rows,
-           const int64_t* __restrict__ ref_ptr,
-           const int32_t* __restrict__ refs,
-           const int32_t* __restrict__ coef, int nred, int p) {
-  const float invp = 1.0f / static_cast<float>(p);
-  const int r = blockIdx.x;
-  const int c = (blockIdx.y * kThreads + threadIdx.x) * kVec;
-  if (c >= M) return;
-  int16_t* dst = R + static_cast<int64_t>(rows[r]) * M + c;
-  int4 raw = *reinterpret_cast<const int4*>(dst);
-  const int16_t* rv = reinterpret_cast<const int16_t*>(&raw);
-  int acc[kVec], part[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    acc[i] = rv[i];
-    part[i] = 0;
-  }
-  int cnt = 0;
-  const int64_t s1 = ref_ptr[r + 1];
-  for (int64_t s = ref_ptr[r]; s < s1; ++s) {
-    const int cz = coef[s];
-    const int4 g = *reinterpret_cast<const int4*>(
-        R + static_cast<int64_t>(refs[s]) * M + c);
-    const int16_t* gv = reinterpret_cast<const int16_t*>(&g);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) part[i] += cz * static_cast<int>(gv[i]);
-    if (++cnt == nred) {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        acc[i] = spasm::reduce31(acc[i] - part[i], p, invp);
-        part[i] = 0;
-      }
-      cnt = 0;
+__device__ __forceinline__ int4 load16(const int16_t* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+
+// The schedule: one int32 array, [bounds (ngroups + 1) | rows (n) |
+// ref_ptr (n + 1) | refs (nrefs) | coef (nrefs)].
+struct Sched {
+  const int32_t* __restrict__ bounds;
+  const int32_t* __restrict__ rows;
+  const int32_t* __restrict__ ref_ptr;
+  const int32_t* __restrict__ refs;
+  const int32_t* __restrict__ coef;
+  int ngroups;
+};
+
+// A slot's row: its wave g, position r (and the wave's end b1), R row and
+// reference range [s0, s1).  g == ngroups: none left.
+struct Job {
+  int g, r, b1, row, s0, s1;
+};
+
+// The slot's first row at or after position r of wave g.
+__device__ __forceinline__ Job next_job(const Sched& sc, int g, int r, int b1,
+                                        int slot) {
+  while (g < sc.ngroups && r >= b1) {
+    if (++g < sc.ngroups) {
+      r = sc.bounds[g] + slot;
+      b1 = sc.bounds[g + 1];
     }
   }
-  int4 out;
-  int16_t* ov = reinterpret_cast<int16_t*>(&out);
+  Job j = {g, r, b1, 0, 0, 0};
+  if (g < sc.ngroups) {
+    j.row = sc.rows[r];
+    j.s0 = sc.ref_ptr[r];
+    j.s1 = sc.ref_ptr[r + 1];
+  }
+  return j;
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+subst_waves(int16_t* R, int M, Sched sc, int nred, int p) {
+  const float invp = 1.0f / static_cast<float>(p);
+  const int slot = threadIdx.x / kLanes;
+  const int c = blockIdx.x * kCols + (threadIdx.x % kLanes) * kVec;
+  Job cur = next_job(sc, 0, sc.bounds[0] + slot, sc.bounds[1], slot);
+  for (int g = 0; g < sc.ngroups; ++g) {
+    while (cur.g == g) {                            // slot-uniform
+      int16_t* dst = R + static_cast<int64_t>(cur.row) * M + c;
+      const int4 raw = load16(dst);
+      int cz[kU];
+      int4 gv[kU];
 #pragma unroll
-  for (int i = 0; i < kVec; ++i)
-    ov[i] = static_cast<int16_t>(spasm::reduce31(acc[i] - part[i], p, invp));
-  *reinterpret_cast<int4*>(dst) = out;
+      for (int u = 0; u < kU; ++u) {
+        const int s = cur.s0 + u;
+        const bool ok = s < cur.s1;
+        cz[u] = ok ? sc.coef[s] : 0;
+        gv[u] = ok ? load16(R + static_cast<int64_t>(sc.refs[s]) * M + c)
+                   : make_int4(0, 0, 0, 0);
+      }
+      // the next row's indices while this row's loads are in flight
+      const Job nx = next_job(sc, cur.g, cur.r + kSlots, cur.b1, slot);
+      const int16_t* rv = reinterpret_cast<const int16_t*>(&raw);
+      // |acc| <= p/2 + nred (p/2)^2 < 2^31 between reductions
+      int acc[kVec];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] = rv[i];
+      int cnt = 0;
+      for (int s = cur.s0;;) {
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (s + u >= cur.s1) break;
+          const int16_t* gs = reinterpret_cast<const int16_t*>(&gv[u]);
+#pragma unroll
+          for (int i = 0; i < kVec; ++i)
+            acc[i] -= cz[u] * static_cast<int>(gs[i]);
+          if (++cnt == nred) {
+#pragma unroll
+            for (int i = 0; i < kVec; ++i)
+              acc[i] = spasm::reduce31(acc[i], p, invp);
+            cnt = 0;
+          }
+        }
+        s += kU;
+        if (s >= cur.s1) break;                     // slot-uniform
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const bool ok = s + u < cur.s1;
+          cz[u] = ok ? sc.coef[s + u] : 0;
+          gv[u] = ok ? load16(R + static_cast<int64_t>(sc.refs[s + u]) * M +
+                              c)
+                     : make_int4(0, 0, 0, 0);
+        }
+      }
+      int4 out;
+      int16_t* ov = reinterpret_cast<int16_t*>(&out);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        ov[i] = static_cast<int16_t>(spasm::reduce31(acc[i], p, invp));
+      *reinterpret_cast<int4*>(dst) = out;
+      cur = nx;
+    }
+    __syncthreads();                    // this wave's stores, to the block
+  }
 }
 
 }  // namespace
 
-// R (npad, M) int16, M % 512 == 0, rows 16-byte aligned.  rows (nlive,),
-// ref_ptr (nlive + 1,) int64 into refs/coef; bounds (ngroups + 1,) is a
-// HOST int64 array of wave boundaries into rows.  One launch per wave.
-extern "C" int spasm_subst_waves(void* R, int M, void* rows, void* ref_ptr,
-                                 void* refs, void* coef, void* bounds,
-                                 int ngroups, int nred, int p,
+// R (npad, M) int16, M % 64 == 0, rows 16-byte aligned; sched the int32
+// schedule array above, on the card (n rows, nrefs references, ngroups
+// >= 1 waves).  One launch.
+extern "C" int spasm_subst_waves(void* R, int M, void* sched, int n,
+                                 int nrefs, int ngroups, int nred, int p,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* b = static_cast<const int64_t*>(bounds);
-  const dim3 block(kThreads);
-  for (int g = 0; g < ngroups; ++g) {
-    const int64_t n = b[g + 1] - b[g];
-    if (n <= 0) continue;
-    const dim3 grid(static_cast<unsigned>(n), (M + kCols - 1) / kCols);
-    subst_wave<<<grid, block, 0, s>>>(
-        static_cast<int16_t*>(R), M, static_cast<const int32_t*>(rows) + b[g],
-        static_cast<const int64_t*>(ref_ptr) + b[g],
-        static_cast<const int32_t*>(refs), static_cast<const int32_t*>(coef),
-        nred, p);
-  }
+  const int32_t* a = static_cast<const int32_t*>(sched);
+  Sched sc;
+  sc.bounds = a;
+  sc.rows = a + ngroups + 1;
+  sc.ref_ptr = sc.rows + n;
+  sc.refs = sc.ref_ptr + n + 1;
+  sc.coef = sc.refs + nrefs;
+  sc.ngroups = ngroups;
+  subst_waves<<<M / kCols, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int16_t*>(R), M, sc, nred, p);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Columns per block: M must be a multiple of it.
+extern "C" int spasm_subst_cols() { return kCols; }

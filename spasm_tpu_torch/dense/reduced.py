@@ -130,19 +130,9 @@ class ReducedBasis:
     def _build_subst(self, R, offs, cols, vals, pivcols, groups, pivmap):
         """Scatter every row's free entries into R, then run the
         substitution waves (descending groups) through kernel B1."""
-        npiv = self.npiv
-        npad = self.npad
-        lens = np.diff(offs).astype(np.int64)
-        order = np.argsort(-groups, kind="stable")
-        src = _flat_gather(np.asarray(offs)[order].astype(np.int64),
-                           lens[order])
-        rr = np.repeat(np.arange(npiv), lens[order])   # ordered row idx
-        cc = np.asarray(cols)[src].astype(np.int64)
-        vv = np.asarray(vals)[src].astype(np.int32)
-        own = cc == pivcols[order][rr]
-        refg = pivmap[cc]                              # R row / npad-1
-        is_ref = (refg != npad - 1) & ~own
-        is_free = ~is_ref & ~own
+        order, rr, cc, vv, is_ref, refg = _ordered_entries(
+            offs, cols, vals, pivcols, groups, pivmap, self.npad)
+        is_free = ~is_ref & (cc != pivcols[order][rr])
         # CSR rows have unique columns: a plain indexed store
         if np.any(is_free):
             fr = torch.as_tensor(order[rr[is_free]], device=self.device)
@@ -150,17 +140,9 @@ class ReducedBasis:
                                  device=self.device)
             R[fr, fc] = torch.as_tensor(vv[is_free], device=self.device
                                         ).to(R.dtype)
-        ref_cnt = np.bincount(rr[is_ref], minlength=npiv)
-        live = ref_cnt > 0
-        if not np.any(live):
-            return
-        ref_ptr = np.zeros(int(live.sum()) + 1, np.int64)
-        np.cumsum(ref_cnt[live], out=ref_ptr[1:])
-        g_live = groups[order][live]
-        bounds = np.concatenate(
-            ([0], np.nonzero(np.diff(g_live))[0] + 1, [g_live.size]))
-        subst_waves(R, order[live], ref_ptr, refg[is_ref], vv[is_ref],
-                    bounds, self.prime)
+        waves = _schedule(order, rr, vv, is_ref, refg, groups)
+        if waves[0].size:
+            subst_waves(R, *waves, self.prime)
 
     # -- phase B -----------------------------------------------------------
 
@@ -273,6 +255,53 @@ class ReducedBasis:
     def _small_acc(self, K: int) -> bool:
         """True when K balanced products fit one int32 accumulator."""
         return K * (self.prime // 2) ** 2 < (1 << 31)
+
+
+def subst_schedule(offs, cols, vals, pivcols, groups, pivmap, npad: int):
+    """Kernel B1's schedule for the basis rows of `ReducedBasis.build`
+    (flat CSR-style arrays, pivcols (npiv,), groups (npiv,)); pivmap
+    (m + 1,) the R row of each pivot column, npad - 1 for the others.
+    Returns (rows, ref_ptr, refs, coef, bounds) for `subst_waves`: rows
+    the R rows that reference others, in descending group order; ref_ptr
+    (len(rows) + 1,) offsets into refs (R rows) and coef (the referencing
+    entries' values); bounds the waves' boundaries into rows (one wave
+    per group).  Every reference lies in a strictly earlier wave.  All
+    empty when no row references another."""
+    order, rr, _, vv, is_ref, refg = _ordered_entries(
+        offs, cols, vals, np.asarray(pivcols, np.int64), groups, pivmap,
+        npad)
+    return _schedule(order, rr, vv, is_ref, refg, groups)
+
+
+def _ordered_entries(offs, cols, vals, pivcols, groups, pivmap, npad):
+    """Every basis row's entries, rows in descending group order: order
+    (npiv,) the processing order; per entry rr (position of its row in
+    order), cc (column), vv (value), is_ref (it references another
+    basis row), refg (that row's R row)."""
+    groups = np.asarray(groups)
+    lens = np.diff(offs).astype(np.int64)
+    order = np.argsort(-groups, kind="stable")
+    src = _flat_gather(np.asarray(offs)[order].astype(np.int64),
+                       lens[order])
+    rr = np.repeat(np.arange(len(order)), lens[order])   # ordered row idx
+    cc = np.asarray(cols)[src].astype(np.int64)
+    vv = np.asarray(vals)[src].astype(np.int32)
+    own = cc == pivcols[order][rr]
+    refg = pivmap[cc]                                  # R row / npad-1
+    is_ref = (refg != npad - 1) & ~own
+    return order, rr, cc, vv, is_ref, refg
+
+
+def _schedule(order, rr, vv, is_ref, refg, groups):
+    ref_cnt = np.bincount(rr[is_ref], minlength=len(order))
+    live = ref_cnt > 0
+    ref_ptr = np.zeros(int(live.sum()) + 1, np.int64)
+    np.cumsum(ref_cnt[live], out=ref_ptr[1:])
+    g_live = np.asarray(groups)[order][live]
+    bounds = np.concatenate(
+        ([0], np.nonzero(np.diff(g_live))[0] + 1, [g_live.size]))
+    return (order[live], ref_ptr, refg[is_ref], vv[is_ref],
+            bounds.astype(np.int64))
 
 
 def _k_bucket(k: int) -> int:

@@ -11,7 +11,10 @@ panel, so the processed prefix stays a fully reduced unit-pivot basis.
 The two sweeps (contract: the division-free Jordan steps of one (64, M)
 int32 sub-panel, in place, returning each row's pivot column or -1):
   * B2 `row_sweep`: leftmost-nonzero pivot rule (`_row_sweep_kernel`,
-    rowrref.py:55 of the JAX package); used at M == 2048;
+    rowrref.py:55 of the JAX package); used at M == 2048.  Two kernel
+    variants, chosen by shape alone (`row_sweep_variant`): one cluster
+    launch per sweep with the panel in shared memory (nb <= 64, M <=
+    CLUSTER_COLS), else the pair of launches per Jordan step;
   * B3 `row_sweep_tiles`: per TILE_W-column tile, the leftmost nonzero
     within the tile (`_row_sweep_kernel2`, rowrref.py:126); used at
     M >= 4096.  Its pivots depend on the tile width, which is Hopper's
@@ -41,6 +44,8 @@ from .modp import check_prime, dnorm64, matmul_digits, modinv
 _SB = 64            # rows per sweep (sub-panel)
 _TW = 2048          # width quantum: B2 at M == _TW, B3 at M >= 2 * _TW
 TILE_W = 512        # B3's tile width (csrc/row_sweep.cu kTW)
+CLUSTER_COLS = 8 * 1024    # B2's cluster variant: most columns (kCB *
+                           # kCColsMax)
 _CHUNK = 4096       # basis rows per CompactBasis product (memory bound)
 
 
@@ -52,9 +57,17 @@ def _check_sweep_input(P: torch.Tensor, p: int, nb_max: int):
         raise ValueError(f"sweep takes 1..{nb_max} rows, got {P.shape[0]}")
 
 
+def row_sweep_variant(nb: int, M: int) -> str:
+    """The B2 kernel variant an (nb, M) sub-panel takes, by shape alone:
+    "cluster" for nb <= 64 and M <= CLUSTER_COLS (the panel in one
+    cluster's shared memory, one launch per sweep), "pair" otherwise
+    (sweep_find + sweep_update, two launches per Jordan step)."""
+    return "cluster" if nb <= _SB and M <= CLUSTER_COLS else "pair"
+
+
 def row_sweep(P: torch.Tensor, p: int) -> torch.Tensor:
-    """Kernel B2: leftmost-rule Jordan sweep of P (nb, M) int32 in place;
-    returns pivcol (nb,) int32 on P's device."""
+    """Kernel B2: leftmost-rule Jordan sweep of P (nb, M) int32 in place,
+    balanced; returns pivcol (nb,) int32 on P's device."""
     _check_sweep_input(P, p, 1024)
     if P.device.type == "cpu":
         return _row_sweep_plain(P, p)
@@ -62,11 +75,25 @@ def row_sweep(P: torch.Tensor, p: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {P.device}")
     nb, M = P.shape
     pivcol = torch.empty(nb, dtype=torch.int32, device=P.device)
-    st = torch.empty(nb + 2, dtype=torch.int32, device=P.device)
-    err = _cuda.lib().spasm_row_sweep(P.data_ptr(), nb, M, pivcol.data_ptr(),
-                                      st.data_ptr(), p, _cuda.stream_ptr(P))
-    _cuda.check(err, "kernel B2 (spasm_row_sweep)")
-    _cuda.launches["B2"] += 2 * nb
+    L = _cuda.lib()
+    variant = row_sweep_variant(nb, M)
+    if variant == "cluster":
+        if L.spasm_row_sweep_cluster_cols() != CLUSTER_COLS:
+            raise RuntimeError("csrc/row_sweep.cu disagrees with "
+                               "CLUSTER_COLS")
+        err = L.spasm_row_sweep_cluster(P.data_ptr(), nb, M,
+                                        pivcol.data_ptr(), p,
+                                        _cuda.stream_ptr(P))
+        n = 1
+    else:
+        st = torch.empty(nb + 2, dtype=torch.int32, device=P.device)
+        err = L.spasm_row_sweep(P.data_ptr(), nb, M, pivcol.data_ptr(),
+                                st.data_ptr(), p, _cuda.stream_ptr(P))
+        n = 2 * nb
+    _cuda.check(err, f"kernel B2 ({variant} variant)")
+    _cuda.launches["B2"] += n
+    _cuda.launches[f"B2 {variant}"] += n
+    _cuda.calls["B2"] += 1
     return pivcol
 
 

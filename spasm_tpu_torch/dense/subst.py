@@ -8,9 +8,11 @@ references, in topological order,
 where R[k] already holds row k's scattered free entries.  The rows come
 in waves (the topological groups of the U rows): rows of one wave never
 reference each other and only reference rows of earlier waves, so each
-wave is one data-parallel step.  The CUDA kernel (csrc/subst.cu) runs
-one launch per wave; the plain version runs the same wave loop as torch
-ops (gather, int64 sum, mod).
+wave is one data-parallel step.  The CUDA kernel (csrc/subst.cu) is
+one launch per call: its blocks own column chunks and each walks every
+wave, since a column of R[k] depends only on the same column of the rows
+k references.  The plain version runs the wave loop as torch ops
+(gather, int64 sum, mod).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from .. import _cuda
 from .modp import check_prime, dnorm64
 
 _KMAX = 16
+SUBST_COLS = 64              # kernel B1's columns per block (csrc kCols)
 _PLAIN_BUDGET = 1 << 26      # elements of one plain-version gather
 
 
@@ -55,23 +58,28 @@ def subst_waves(R: torch.Tensor, rows: np.ndarray, ref_ptr: np.ndarray,
         return
     if R.device.type != "cuda":
         raise ValueError(f"unsupported device {R.device}")
-    if M % 512 or R.data_ptr() % 16:
-        raise ValueError("kernel B1 needs M % 512 == 0 and 16-byte rows")
-    dev = R.device
-    rows_d = torch.as_tensor(np.asarray(rows, np.int32), device=dev)
-    ptr_d = torch.as_tensor(np.asarray(ref_ptr, np.int64), device=dev)
-    refs_d = torch.as_tensor(np.asarray(refs, np.int32), device=dev)
-    coef_d = torch.as_tensor(np.asarray(coef, np.int32), device=dev)
-    if refs_d.numel() == 0:                    # keep the pointers valid
-        refs_d = torch.zeros(1, dtype=torch.int32, device=dev)
-        coef_d = torch.zeros(1, dtype=torch.int32, device=dev)
+    if M == 0:
+        return
+    if M % SUBST_COLS or R.data_ptr() % 16:
+        raise ValueError(f"kernel B1 needs M % {SUBST_COLS} == 0 and "
+                         "16-byte rows")
+    ngroups = len(bounds) - 1
+    nrefs = int(ref_ptr[-1])
+    if n + nrefs >= 1 << 30:
+        raise ValueError("kernel B1 takes fewer than 2^30 rows + references")
+    # the schedule as one int32 array: one copy to the card
+    sched = np.concatenate([
+        bounds, rows, ref_ptr, np.asarray(refs)[:nrefs],
+        np.asarray(coef)[:nrefs]]).astype(np.int32)
+    sched_d = torch.from_numpy(sched).to(R.device)
     L = _cuda.lib()
-    err = L.spasm_subst_waves(
-        R.data_ptr(), M, rows_d.data_ptr(), ptr_d.data_ptr(),
-        refs_d.data_ptr(), coef_d.data_ptr(), bounds.ctypes.data,
-        len(bounds) - 1, nred_for(p), p, _cuda.stream_ptr(R))
+    if L.spasm_subst_cols() != SUBST_COLS:
+        raise RuntimeError("csrc/subst.cu kCols disagrees with SUBST_COLS")
+    err = L.spasm_subst_waves(R.data_ptr(), M, sched_d.data_ptr(), n, nrefs,
+                              ngroups, nred_for(p), p, _cuda.stream_ptr(R))
     _cuda.check(err, "kernel B1 (spasm_subst_waves)")
-    _cuda.launches["B1"] += int(np.count_nonzero(np.diff(bounds)))
+    _cuda.launches["B1"] += 1
+    _cuda.calls["B1"] += 1
 
 
 def _subst_waves_plain(R, rows, ref_ptr, refs, coef, bounds, p: int):

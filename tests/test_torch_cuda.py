@@ -14,17 +14,20 @@ import numpy as np
 import pytest
 import torch
 
-from chip_checks import b3_panel, deficient_panel, panel_block, random_waves
+from chip_checks import (b2_panel, b3_panel, deficient_panel, panel_block,
+                         random_waves)
 from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
 from spasm_tpu_torch.certificate import factorization_verify
 from spasm_tpu_torch.dense.elim import dense_lu_device, dense_rref_device
 from spasm_tpu_torch.dense.modp import matmul_digits
 from spasm_tpu_torch.dense.panel import (CLUSTER_ROWS, _panel_plain,
                                          panel_pivots, panel_variant)
-from spasm_tpu_torch.dense.rowrref import (TILE_W, _row_sweep_plain,
+from spasm_tpu_torch.dense.rowrref import (CLUSTER_COLS, TILE_W,
+                                           _row_sweep_plain,
                                            _row_sweep_tiles_plain, row_sweep,
-                                           row_sweep_tiles)
-from spasm_tpu_torch.dense.subst import _subst_waves_plain, subst_waves
+                                           row_sweep_tiles, row_sweep_variant)
+from spasm_tpu_torch.dense.subst import (_subst_waves_plain, nred_for,
+                                         subst_waves)
 
 pytestmark = pytest.mark.cuda
 
@@ -39,37 +42,71 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("p", [257, 42013])
-@pytest.mark.parametrize("M", [2048, 22528])
-def test_b1_matches_plain(dev, p, M):
-    rng = np.random.default_rng([p, M])
-    n = 3000
-    rows, ptr, refs, coef, bounds = random_waves(rng, n, 40, 12, p)
+def _b1_check(dev, waves, M, p, seed):
+    """B1 on the card against its plain version: one launch per call."""
+    rows, ptr, refs, coef, bounds = waves
+    n = len(rows)
+    rng = np.random.default_rng(seed)
     R0 = torch.from_numpy(
         rng.integers(-(p // 2), p // 2 + 1, (n + 64, M)).astype(np.int16))
     R0[n:] = 0
     want = R0.to(dev)
     _subst_waves_plain(want, rows, ptr, refs, coef, bounds, p)
     got = R0.to(dev)
-    before = _cuda.launches["B1"]
+    before = dict(_cuda.launches), dict(_cuda.calls)
     subst_waves(got, rows, ptr, refs, coef, bounds, p)
     torch.cuda.synchronize()
-    assert _cuda.launches["B1"] - before == len(bounds) - 1
+    assert _cuda.launches["B1"] - before[0]["B1"] == 1
+    assert _cuda.calls["B1"] - before[1]["B1"] == 1
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("p", [257, 42013])
+@pytest.mark.parametrize("M", [2048, 20480, 22528])
+def test_b1_matches_plain(dev, p, M):
+    rng = np.random.default_rng([p, M])
+    _b1_check(dev, random_waves(rng, 3000, 40, 12, p), M, p, [p, M, 1])
+
+
+@pytest.mark.parametrize("M", [2048, 20480, 22528])
+def test_b1_one_row_waves_many_refs(dev, M):
+    """Waves of one row each, rows with up to 12 references at p = 65269,
+    where nred = 2: many reductions per row and one row per barrier."""
+    p = 65269
+    assert nred_for(p) == 2
+    rng = np.random.default_rng([M, 11])
+    waves = random_waves(rng, 300, 300, 12, p)
+    assert np.all(np.diff(waves[4]) == 1)
+    assert np.diff(waves[1]).max() > nred_for(p)
+    _b1_check(dev, waves, M, p, [M, 12])
+
+
+@pytest.mark.parametrize("case", ["rank40", "zero", "full", "boundary"])
+@pytest.mark.parametrize("nb", [1, 17, 64])
 @pytest.mark.parametrize("M", [2048, 22528])
 @pytest.mark.parametrize("p", [3, 42013, 65269])
-def test_b2_matches_plain(dev, M, p):
-    P0 = torch.from_numpy(deficient_panel(np.random.default_rng([M, p]),
-                                          64, M, 40, p, empty_cols=700))
+def test_b2_matches_plain(dev, M, p, nb, case):
+    """Both B2 variants (cluster at M = 2048, the pair beyond the cluster's
+    capacity) bit-equal to the plain version, with their launch counts."""
+    P0 = torch.from_numpy(b2_panel(np.random.default_rng([M, p, nb]), case,
+                                   nb, M, p))
     want = P0.to(dev)
     piv_want = _row_sweep_plain(want, p)
     got = P0.to(dev)
+    variant = row_sweep_variant(nb, M)
+    assert variant == ("cluster" if M <= CLUSTER_COLS else "pair")
+    before = dict(_cuda.launches)
     piv = row_sweep(got, p)
     torch.cuda.synchronize()
+    n = 1 if variant == "cluster" else 2 * nb
+    assert _cuda.launches["B2"] - before["B2"] == n
+    assert _cuda.launches[f"B2 {variant}"] - before[f"B2 {variant}"] == n
     assert torch.equal(piv, piv_want)
     assert torch.equal(got, want)
+    if case == "full":
+        assert bool((piv >= 0).all())
+    if case == "zero":
+        assert bool((piv < 0).all())
 
 
 @pytest.mark.parametrize("M", [2 * TILE_W, 22528])

@@ -1,5 +1,6 @@
-"""Kernel B1's plain version and the port's ReducedBasis against the JAX
-package, on the same inputs (tolerance 0: R is unique)."""
+"""Kernel B1's plain version, its schedule and the port's ReducedBasis
+against the JAX package, on the same inputs (tolerance 0: R is
+unique)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +13,7 @@ from spasm_tpu.echelonize import EchelonizeOptions as JOpts
 from spasm_tpu.echelonize import _Engine as JEngine
 from spasm_tpu.gen import matching_complex_boundary
 
-from spasm_tpu_torch.dense.reduced import ReducedBasis
+from spasm_tpu_torch.dense.reduced import ReducedBasis, subst_schedule
 from spasm_tpu_torch.dense.subst import nred_for, subst_waves
 from spasm_tpu_torch.echelonize import EchelonizeOptions, _Engine
 from spasm_tpu_torch.interop import csr_from_numpy
@@ -141,3 +142,44 @@ def test_form_block_on_jax_R(weighted):
     want = np.asarray(jrb.form_block(ej, cj, Bp=128))
     got = trb.form_block(et, ct, Bp=128).numpy()
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("p", [257, 42013])
+@pytest.mark.parametrize("src", ["mat364.sms", "l1.sms", "u1.sms",
+                                 "trefethen_500.sms", "dm.sms",
+                                 "example.sms"])
+def test_subst_schedule_matches_jax(src, p):
+    """B1's schedule of a fixture's structural pivots: unique rows, every
+    reference in a strictly earlier wave, balanced coefficients; the
+    scattered free entries substituted over it (plain version) give the
+    JAX package's R."""
+    A, _ = jsio.load_csr(MATRIX / src, p)
+    je, te, _ = _both_engines(A, p)
+    offs, cols, vals, pivcols, groups = te.U.flat_store()
+    qfree = np.nonzero(je.U.qinv < 0)[0]
+    rb = ReducedBasis(A.m, p, qfree, te.U.n, "cpu")
+    npad = rb.npad
+    pivmap = np.full(A.m + 1, npad - 1, np.int64)
+    pivmap[pivcols] = np.arange(len(pivcols))
+    rows, ref_ptr, refs, coef, bounds = subst_schedule(
+        offs, cols, vals, pivcols, groups, pivmap, npad)
+    assert rows.size and np.unique(rows).size == rows.size
+    assert bounds[0] == 0 and bounds[-1] == rows.size
+    assert np.all(np.diff(bounds) > 0)
+    wave = np.full(npad, -1)                  # rows without references: -1
+    wave[rows] = np.repeat(np.arange(len(bounds) - 1), np.diff(bounds))
+    assert np.all(wave[refs] < np.repeat(wave[rows], np.diff(ref_ptr)))
+    assert np.all(np.abs(coef) <= p // 2)
+    # each basis row's free entries scattered into the compact R
+    colmap = np.full(A.m + 1, rb.M - 1, np.int64)
+    colmap[qfree] = np.arange(qfree.size)
+    R = torch.zeros((npad, rb.M), dtype=torch.int16)
+    for i in range(len(pivcols)):
+        c = cols[offs[i]:offs[i + 1]]
+        free = pivmap[c] == npad - 1
+        R[i, torch.from_numpy(colmap[c[free]])] = torch.from_numpy(
+            vals[offs[i]:offs[i + 1]][free].astype(np.int16))
+    subst_waves(R, rows, ref_ptr, refs, coef, bounds, p)
+    jrb = JReducedBasis(A.m, p, qfree, je.U.n)
+    jrb.build(*je.U.flat_store())
+    assert np.array_equal(R.numpy(), np.asarray(jrb.R))

@@ -13,12 +13,12 @@ from spasm_tpu.dense.rowrref import _rref_rows as j_rref_rows
 
 from chip_checks import b3_panel
 from spasm_tpu_torch.dense.modp import dnorm64
-from spasm_tpu_torch.dense.rowrref import (CompactBasis, TILE_W,
-                                           _jordan_step, _rref_rows,
+from spasm_tpu_torch.dense.rowrref import (CLUSTER_COLS, CompactBasis,
+                                           TILE_W, _jordan_step, _rref_rows,
                                            _row_sweep_plain,
                                            _row_sweep_tiles_plain,
                                            rref_rows_device, row_sweep,
-                                           row_sweep_tiles)
+                                           row_sweep_tiles, row_sweep_variant)
 
 torch.set_num_threads(2)
 
@@ -129,6 +129,42 @@ def test_wrappers_check_inputs():
         row_sweep_tiles(torch.zeros(32, TILE_W, dtype=torch.int32), 257)
     with pytest.raises(NotImplementedError):
         row_sweep(torch.zeros(4, 8, dtype=torch.int32), 65537)
+
+
+@pytest.mark.parametrize("nb,M,want", [
+    (64, 2048, "cluster"), (1, 2048, "cluster"), (17, 1, "cluster"),
+    (64, CLUSTER_COLS, "cluster"), (64, CLUSTER_COLS + 1, "pair"),
+    (64, 22528, "pair"), (65, 2048, "pair"), (1024, 2048, "pair")])
+def test_row_sweep_variant(nb, M, want):
+    """B2's variant by shape alone: the cluster at the main path's (64,
+    2048), the pair beyond the cluster's capacity in rows or columns."""
+    assert CLUSTER_COLS >= 2048
+    assert row_sweep_variant(nb, M) == want
+
+
+@pytest.mark.parametrize("case", ["no rows", "too many rows", "int16",
+                                  "1-D", "strided", "meta device",
+                                  "p too large"])
+def test_row_sweep_rejects(case):
+    """What neither B2 variant takes raises before any launch."""
+    P = torch.zeros((64, 2048), dtype=torch.int32)
+    p, exc = 42013, ValueError
+    if case == "no rows":
+        P = P[:0]
+    elif case == "too many rows":
+        P = torch.zeros((1025, 8), dtype=torch.int32)
+    elif case == "int16":
+        P = P.to(torch.int16)
+    elif case == "1-D":
+        P = P[0]
+    elif case == "strided":
+        P = P[:, ::2]
+    elif case == "meta device":
+        P = P.to("meta")
+    else:
+        p, exc = 65537, NotImplementedError
+    with pytest.raises(exc):
+        row_sweep(P, p)
 
 
 def _tiles_right_looking(P: torch.Tensor, p: int) -> torch.Tensor:
