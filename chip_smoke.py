@@ -38,7 +38,19 @@ Phases, each fatal on failure (no failure is caught):
      (factorization_verify); the same matrix's rank through finish_dense
      (device_dense_width=0).  B4 must have launched in both modes, and
      the variant each main-path panel height takes is printed;
-  6. a JSON line of the kernels, then the last line
+  6. the rounds, with the launch counts zeroed again: mk12.b4 with
+     device_dense_width=0 (the reference-shaped round loop: round 0, its
+     sparse Schur complement through the reduced basis, round 1, then
+     finish_dense and its low-rank tail), cold, warm and profiled, rank
+     39535, with the pivots, sampled density and Schur nnz of each round
+     and the stage clocks (pivots, density estimate, reduced basis, sparse
+     Schur, finisher); its complete PLUQ (rank 39535, L and U
+     materialized, factorization_verify); mk10.b3 with
+     device_dense_width=0 through the native GPLU finisher, bit-equal to
+     the port's own CPU run.  B1 must launch exactly once per
+     reduced-basis build (counted apart) and B4 in both modes;
+  7. a JSON line of the kernels (launches summed over the paths), then
+     the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX or of the JAX package `spasm_tpu`.
@@ -221,15 +233,14 @@ def b1_line(label, R0, waves, reps: int) -> dict:
     return dict(rec, ms=ms, plain_ms=plain_ms)
 
 
-def b1_real_schedule(A) -> dict:
-    """B1 on mk13.b5's own schedule: the structural pivots of round 0,
-    the reduced basis's waves (`subst_schedule`), R of the basis's shape
-    filled with seeded balanced values."""
-    from spasm_tpu_torch import EchelonizeOptions
+def b1_real_schedule(A, tag: str, opts) -> dict:
+    """B1 on the schedule that round 0 of echelonize(A, opts) builds: its
+    structural pivots, the reduced basis's waves (`subst_schedule`), R
+    of the basis's shape filled with seeded balanced values."""
     from spasm_tpu_torch.dense.reduced import ReducedBasis, subst_schedule
     from spasm_tpu_torch.echelonize import _Engine
     dev = torch.device("cuda")
-    eng = _Engine(A, EchelonizeOptions(), dev)
+    eng = _Engine(A, opts, dev)
     eng.extract_structural(A)
     qfree = np.nonzero(eng.U.qinv < 0)[0]
     rb = ReducedBasis(A.m, P, qfree, eng.U.n, dev)
@@ -243,7 +254,7 @@ def b1_real_schedule(A) -> dict:
     R0 = torch.randint(-(P // 2), P // 2 + 1, (rb.npad, rb.M),
                        dtype=torch.int16, device=dev, generator=gen)
     R0[-1] = 0
-    rec = b1_line(f"on mk13.b5's own schedule (R {rb.npad} x {rb.M})", R0,
+    rec = b1_line(f"on {tag}'s own schedule (R {rb.npad} x {rb.M})", R0,
                   waves, 3)
     del R0
     torch.cuda.empty_cache()
@@ -251,6 +262,7 @@ def b1_real_schedule(A) -> dict:
 
 
 def kernel_phase(mats) -> dict:
+    from spasm_tpu_torch import EchelonizeOptions
     from chip_checks import (b3_panel, cuda_ms, deficient_panel, panel_block,
                              random_waves)
     from spasm_tpu_torch.dense.modp import matmul_digits
@@ -273,7 +285,12 @@ def kernel_phase(mats) -> dict:
     R0[n:] = 0
     b1_line("synthetic", R0, waves, 3)
     del R0
-    out["B1"] = b1_real_schedule(mats["mk13.b5"])
+    # the rank path's schedule (mk13.b5, default options) and the rounds
+    # path's (mk12.b4's round 0 at device_dense_width=0)
+    out["B1"] = b1_real_schedule(mats["mk13.b5"], "mk13.b5",
+                                 EchelonizeOptions())
+    b1_real_schedule(mats["mk12.b4"], "mk12.b4",
+                     EchelonizeOptions(device_dense_width=0))
 
     def sweeps(name, kern, plain, M, empty, replaces, full=False):
         X = (b3_panel(rng, "full", M, P) if full else
@@ -313,9 +330,10 @@ def kernel_phase(mats) -> dict:
     sweeps("B3 tile_sweep", row_sweep_tiles, _row_sweep_tiles_plain, 22528,
            0, "spasm_tpu/dense/rowrref.py:126", full=True)
 
-    # B4 at the dense finishers' panel heights: 4608 (PLUQ16k blocks, LU)
-    # and 1024 (trefethen_2000 blocks, RREF and LU)
-    for n in (1024, 4608):
+    # B4 at the dense finishers' panel heights: 4608 (PLUQ16k blocks, LU),
+    # 1024 (trefethen_2000 blocks, RREF and LU) and 1536 (the mk12.b4
+    # rounds: finish_dense's 1291-row blocks padded, RREF and LU)
+    for n in (1024, 1536, 4608):
         X, is_piv = panel_block(rng, n, P)
         Xd = torch.from_numpy(X).to(dev)
         P0 = Xd[:, 64:128]                 # read through the row stride
@@ -531,7 +549,99 @@ def dense_finisher_phase() -> dict:
     return counts
 
 
+def _round_lines(fact) -> None:
+    for k, r in enumerate(fact.rounds):
+        log(f"  round {k}: {r['pivots']} structural pivots"
+            + (f", sampled Schur density {100 * r['density']:.2f} %"
+               if "density" in r else "")
+            + (f", sparse Schur complement {r['schur_nnz']} nnz"
+               if "schur_nnz" in r else ""))
+
+
+def rounds_phase(mats) -> dict:
+    """The reference-shaped round loop, with the launch counts zeroed
+    first: mk12.b4 at device_dense_width=0 (round 0, its sparse Schur
+    complement through the reduced basis and B1, round 1, finish_dense
+    with B4 in RREF mode and its low-rank tail), cold, warm and profiled;
+    mk12.b4's complete PLUQ (the L-mode Schur complement through the
+    UEliminator, round 1, finish_dense with B4 in LU mode), verified; and
+    mk10.b3 at device_dense_width=0 through the native GPLU finisher,
+    bit-equal to the port's own CPU run."""
+    from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, native
+    from spasm_tpu_torch.certificate import factorization_verify
+    from spasm_tpu_torch.dense.reduced import ReducedBasis
+    from spasm_tpu_torch.gen import matching_complex_boundary
+    B, want = mats["mk12.b4"], MK["mk12.b4"][2]
+    w0 = EchelonizeOptions(device_dense_width=0)
+    A10 = matching_complex_boundary(10, 3)
+    if A10.n < A10.m:
+        A10 = A10.transpose()
+    ref10 = echelonize(A10, w0, device="cpu")
+    if not native.available():
+        sys.exit("chip_smoke: the native GPLU finisher did not build")
+    # independent counts of reduced-basis builds and native GPLU calls
+    builds, gplu_calls = [0], [0]
+    build, gplu = ReducedBasis.build, native.gplu
+
+    def counted_build(self, *a):
+        builds[0] += 1
+        return build(self, *a)
+
+    def counted_gplu(*a):
+        gplu_calls[0] += 1
+        return gplu(*a)
+
+    ReducedBasis.build, native.gplu = counted_build, counted_gplu
+
+    _cuda.reset_launches()
+    for run in ("cold", "warm"):
+        fact = _timed_rank(B, want, f"mk12.b4 rounds {run} "
+                           "(device_dense_width=0)", w0)
+        _round_lines(fact)
+    os.environ["SPASM_PROFILE_FINISH"] = "1"
+    fact = _timed_rank(B, want, "mk12.b4 rounds profiled (stage clocks "
+                       "synchronize)", w0)
+    del os.environ["SPASM_PROFILE_FINISH"]
+    log("mk12.b4 rounds stages (s): " + json.dumps(
+        {k: round(v, 4) for k, v in fact.profile.items()}))
+    rb_builds = builds[0]
+    fact = _timed_rank(B, want, "mk12.b4 complete PLUQ",
+                       EchelonizeOptions(complete=True))
+    _round_lines(fact)
+    t0 = time.time()
+    U, L = fact.U, fact.L
+    t_mat = time.time() - t0
+    t0 = time.time()
+    ok = factorization_verify(B, fact, 42)
+    log(f"mk12.b4 complete PLUQ factors on the host: U {U.nnz} nnz, L "
+        f"{L.nnz} nnz, materialized in {t_mat:.1f} s; factorization_verify "
+        f"{ok} ({time.time() - t0:.1f} s)")
+    if not ok:
+        sys.exit("chip_smoke: mk12.b4 complete PLUQ fails "
+                 "factorization_verify")
+    del fact, U, L
+    gplu_calls[0] = 0
+    fact = _timed_rank(A10, ref10.r, "mk10.b3 rounds (device_dense_width=0)",
+                       w0)
+    _round_lines(fact)
+    if not (_same_U(fact, ref10) and gplu_calls[0] > 0):
+        sys.exit("chip_smoke: mk10.b3 on the card differs from the CPU run "
+                 "or skipped the native GPLU finisher")
+    log(f"  qinv and U bit-equal to the CPU run; {gplu_calls[0]} native "
+        f"GPLU calls")
+    ReducedBasis.build, native.gplu = build, gplu
+    counts = dict(_cuda.launches)
+    _launched(counts, ("B1", "B4 rref", "B4 lu"), "the rounds")
+    log(f"the rounds: B1 {counts['B1']} launches over {builds[0]} "
+        f"reduced-basis builds ({rb_builds} in the three mk12.b4 rank runs)")
+    if counts["B1"] != builds[0] or rb_builds != 3:
+        sys.exit("chip_smoke: B1 did not launch exactly once per "
+                 "reduced-basis build on the rounds")
+    return counts
+
+
 def main() -> int:
+    t0 = time.time()
     kind = device_phase()
     sys.path.insert(0, str(HERE))
     build_phase()
@@ -540,13 +650,18 @@ def main() -> int:
     kernels = kernel_phase(mats)
     counts = rank_path_phase(mats)
     counts4 = dense_finisher_phase()
+    counts5 = rounds_phase(mats)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "spasm_tpu"))
     if leaked:
         sys.exit(f"chip_smoke: JAX modules were imported: {leaked[:5]}")
-    for k in ("B1", "B2", "B3"):
+    # launches: the sum over the paths that run the kernel
+    for k in ("B2", "B3"):
         kernels[k]["launches"] = counts[k]
-    kernels["B4"]["launches"] = counts4["B4 rref"] + counts4["B4 lu"]
+    kernels["B1"]["launches"] = counts["B1"] + counts5["B1"]
+    kernels["B4"]["launches"] = sum(c["B4 rref"] + c["B4 lu"]
+                                    for c in (counts4, counts5))
+    log(f"chip_smoke: {time.time() - t0:.1f} s in all, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

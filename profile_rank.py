@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the port's main paths on one NVIDIA card.
 
-    python3 profile_rank.py [mk12.b4] [mk13.b5] [pluq16k]   (default: all)
+    python3 profile_rank.py [mk12.b4] [mk13.b5] [pluq16k] [mk12.b4.rounds]
+                            [mk12.b4.pluq]    (default: the first three)
 
 Cases (the instances of chip_smoke.py): mk12.b4 and mk13.b5, ranked as
-the rank tool orients them (the rank path's device finisher), and
-pluq16k, the complete PLUQ of synthetic_sparse(16000, 16000, 8, 42013)
-(bench.py config 4; finish_dense in L mode).  For each: one warm-up call
+the rank tool orients them (the rank path's device finisher), pluq16k,
+the complete PLUQ of synthetic_sparse(16000, 16000, 8, 42013) (bench.py
+config 4; finish_dense in L mode), and mk12.b4.rounds, mk12.b4's rank
+through the reference-shaped round loop (device_dense_width=0: round 0,
+the sparse Schur complement through the reduced basis, round 1, then
+finish_dense and its low-rank tail), and mk12.b4.pluq, its complete
+PLUQ (the L-mode sparse Schur complement through the UEliminator, round
+1, finish_dense in L mode).  For each: one warm-up call
 of `echelonize(A, opts, device="cuda")`, three unprofiled warm calls
 (their walls show the spread), then one call under torch.profiler.  From
 that profiled call alone it prints:
@@ -20,11 +26,18 @@ that profiled call alone it prints:
   - busy time by kernel group and the heaviest kernels;
   - the device span of each `spasm/...` range (first kernel start to
     last kernel end of the work launched inside it; nested ranges are
-    counted in each), which places the groups in the engine's stages.
+    counted in each), which places the groups in the engine's stages;
+and, from one more call with SPASM_PROFILE_FINISH=1, the engine's stage
+clocks (host clock, each stage closed by a device synchronize).
+mk12.b4.pluq is not traced: torch.profiler's events of one call (several
+million kernels) ran a 96 GiB host out of memory, so its device busy is
+not measured here.
 
 Imports nothing of JAX.
 """
+import json
 import logging
+import os
 import subprocess
 import sys
 import time
@@ -34,6 +47,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 REPS = 3
+UNTRACED = {"mk12.b4.pluq"}
 GROUPS = (("B1 subst_waves", ("subst_waves",)),
           ("B4 panel_cluster/panel_coop", ("panel_cluster", "panel_coop")),
           ("B2 sweep_cluster / sweep_find+sweep_update",
@@ -73,22 +87,32 @@ def case(tag: str):
     if tag == "pluq16k":
         return (synthetic_sparse(16000, 16000, 8, 42013),
                 EchelonizeOptions(complete=True), 15997)
+    opts = None
+    if tag == "mk12.b4.rounds":
+        tag, opts = "mk12.b4", EchelonizeOptions(device_dense_width=0)
+    elif tag == "mk12.b4.pluq":
+        tag, opts = "mk12.b4", EchelonizeOptions(complete=True)
     nn, j, want = {"mk12.b4": (12, 4, 39535),
                    "mk13.b5": (13, 5, 134211)}[tag]
     A = matching_complex_boundary(nn, j)
     if A.n < A.m:                            # the rank tool's orientation
         A = A.transpose()
-    return A, None, want
+    return A, opts, want
 
 
 def wall_of(echelonize, A, opts, want: int) -> float:
+    return timed(echelonize, A, opts, want)[0]
+
+
+def timed(echelonize, A, opts, want: int):
+    """(wall, fact) of one call ending in a device synchronize."""
     t0 = time.time()
     fact = echelonize(A, opts, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
     if fact.r != want:
         sys.exit(f"profile_rank: rank {fact.r} != {want}")
-    return wall
+    return wall, fact
 
 
 def main() -> int:
@@ -105,42 +129,57 @@ def main() -> int:
         A, opts, want = case(tag)
         wall_of(echelonize, A, opts, want)         # warm-up
         walls = [wall_of(echelonize, A, opts, want) for _ in range(REPS)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall = wall_of(echelonize, A, opts, want)
-        events = prof.events()
-        dev = [e for e in events
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
-        spans = {}
-        for e in events:
-            if (e.device_type == DeviceType.CUDA and e.is_user_annotation
-                    and e.name.startswith("spasm/")):
-                n, t = spans.get(e.name, (0, 0.0))
-                spans[e.name] = (n + 1, t + (e.time_range.end
-                                             - e.time_range.start) / 1e6)
-        busy = union_us((e.time_range.start, e.time_range.end)
-                        for e in dev) / 1e6
-        if busy > wall:
-            sys.exit(f"profile_rank: busy {busy} s exceeds wall {wall} s")
-        byg, byk = {}, {}
-        for e in dev:
-            us = e.time_range.end - e.time_range.start
-            byg[group(e.name)] = byg.get(group(e.name), 0.0) + us / 1e6
-            n, t = byk.get(e.name, (0, 0.0))
-            byk[e.name] = (n + 1, t + us / 1e6)
-        kern_sum = sum(byg.values())
-        print(f"== {tag} rank {want}: unprofiled warm walls "
-              f"{walls} s; profiled call wall {wall} s, device busy "
-              f"{busy} s over {len(dev)} device events, idle share "
-              f"{1 - busy / wall}", flush=True)
-        for g, v in sorted(byg.items(), key=lambda x: -x[1]):
-            print(f"   {g:30s} {v:.4f} s  {100 * v / kern_sum:5.1f} %")
-        for name, (n, t) in sorted(byk.items(), key=lambda x: -x[1][1])[:10]:
-            print(f"   {1e3 * t:9.1f} ms n={n:6d} {name[:90]}")
-        for name, (n, t) in sorted(spans.items(), key=lambda x: -x[1][1]):
-            print(f"   range {name:28s} device span {t:.4f} s (n={n})")
+        if tag not in UNTRACED:
+            trace(tag, echelonize, A, opts, want, walls)
+        else:
+            print(f"== {tag} rank {want}: unprofiled warm walls {walls} s; "
+                  "device busy not measured (not traced)", flush=True)
+        os.environ["SPASM_PROFILE_FINISH"] = "1"
+        wall, fact = timed(echelonize, A, opts, want)
+        del os.environ["SPASM_PROFILE_FINISH"]
+        print(f"   stage clocks of a call of {wall} s (synchronized): "
+              + json.dumps({k: round(v, 4) for k, v in fact.profile.items()}),
+              flush=True)
     return 0
+
+
+def trace(tag, echelonize, A, opts, want: int, walls) -> None:
+    """One call under torch.profiler: busy, idle share, groups, spans."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = wall_of(echelonize, A, opts, want)
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
+    spans = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and e.is_user_annotation
+                and e.name.startswith("spasm/")):
+            n, t = spans.get(e.name, (0, 0.0))
+            spans[e.name] = (n + 1, t + (e.time_range.end
+                                         - e.time_range.start) / 1e6)
+    busy = union_us((e.time_range.start, e.time_range.end)
+                    for e in dev) / 1e6
+    if busy > wall:
+        sys.exit(f"profile_rank: busy {busy} s exceeds wall {wall} s")
+    byg, byk = {}, {}
+    for e in dev:
+        us = e.time_range.end - e.time_range.start
+        byg[group(e.name)] = byg.get(group(e.name), 0.0) + us / 1e6
+        n, t = byk.get(e.name, (0, 0.0))
+        byk[e.name] = (n + 1, t + us / 1e6)
+    kern_sum = sum(byg.values())
+    print(f"== {tag} rank {want}: unprofiled warm walls "
+          f"{walls} s; profiled call wall {wall} s, device busy "
+          f"{busy} s over {len(dev)} device events, idle share "
+          f"{1 - busy / wall}", flush=True)
+    for g, v in sorted(byg.items(), key=lambda x: -x[1]):
+        print(f"   {g:30s} {v:.4f} s  {100 * v / kern_sum:5.1f} %")
+    for name, (n, t) in sorted(byk.items(), key=lambda x: -x[1][1])[:10]:
+        print(f"   {1e3 * t:9.1f} ms n={n:6d} {name[:90]}")
+    for name, (n, t) in sorted(spans.items(), key=lambda x: -x[1][1]):
+        print(f"   range {name:28s} device span {t:.4f} s (n={n})")
 
 
 if __name__ == "__main__":

@@ -32,9 +32,7 @@ def add_echelonize_args(ap: argparse.ArgumentParser):
                    help="Disable the greedy cycle-free pivot search")
     g = ap.add_argument_group("Main echelonization options")
     g.add_argument("--max-iterations", metavar="N", type=int, default=3,
-                   help="Rounds of pivot search + sparse Schur complement. "
-                        "The Schur complement is not ported yet: 0 runs no "
-                        "round, any other N runs round 0 only")
+                   help="Rounds of pivot search + sparse Schur complement")
     g.add_argument("--dense-threshold", metavar="D", type=float,
                    default=0.05,
                    help="Use dense elimination when density exceeds D")

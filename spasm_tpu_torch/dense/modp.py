@@ -127,12 +127,14 @@ def _round8(x: int) -> int:
 def _mm8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int8 (n, k) @ int8 (k, m) -> int32 (n, m) through torch._int_mm.
 
-    On CUDA, _int_mm takes more than 16 rows and k, m multiples of 8;
-    the operands are zero-padded to that (an inert pad) on every device,
-    so the CPU runs the same shapes."""
+    On CUDA, _int_mm takes more than 16 rows and k, m multiples of 8, and
+    cuBLASLt on the H100 (CUDA 12.8) refuses a row count that is not a
+    multiple of 32 once m >= 32 (CUBLAS_STATUS_NOT_SUPPORTED); the
+    operands are zero-padded to rows a multiple of 32 and k, m multiples
+    of 8 (an inert pad) on every device, so the CPU runs the same shapes."""
     n, k = a.shape
     m = b.shape[1]
-    n2, k2, m2 = max(_round8(n), 32), _round8(k), _round8(m)
+    n2, k2, m2 = max(-(-n // 32) * 32, 32), _round8(k), _round8(m)
     if (n2, k2) != (n, k):
         a2 = a.new_zeros((n2, k2))
         a2[:n, :k] = a

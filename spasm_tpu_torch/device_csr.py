@@ -1,19 +1,43 @@
-"""Device-resident CSR: upload a sparse matrix once, then run batched
-SpMVs on the device (the finisher's completion test).
+"""Device-resident CSR: upload a sparse matrix once, then build dense row
+blocks and run batched SpMVs on the device.
 
-Port of the parts of spasm_tpu/device_csr.py that the rank path uses:
-`DeviceCSR.__init__` and `spmv` (`_spmv_batch`).  `densify` and
-`combine` serve the L-mode and host finishers (ROADMAP: L-mode, the
+Port of the parts of spasm_tpu/device_csr.py that the ported paths use:
+`DeviceCSR.__init__`, `densify` (`_densify`: the row blocks of
+`schur_sparse`) and `spmv` (`_spmv_batch`: the finisher's completion
+test).  `combine` has no caller in the port yet (ROADMAP: L-mode, the
 solvers, the other CLI tools).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .csr import CSR
 from .dense.elim import _size_bucket
-from .dense.modp import dnorm64
+from .dense.modp import _reduce31, dnorm64
+
+
+def _densify(indptr: torch.Tensor, indices: torch.Tensor,
+             data: torch.Tensor, rows: torch.Tensor, nrows: int, p: int,
+             Bp: int, mp: int, maxlen: int) -> torch.Tensor:
+    """Scatter rows[:nrows] into a (Bp, mp) dense int32 block.  Entry
+    slots beyond a row's length (and rows past nrows) add 0 into the
+    dead column mp - 1.  Duplicate column entries sum: int32
+    accumulation (maxlen * (p // 2) < 2^31), then one balanced
+    reduction."""
+    starts = indptr[rows]                               # (Bp,)
+    lens = indptr[rows + 1] - starts
+    k = torch.arange(maxlen, device=rows.device)
+    live = (k[None, :] < lens[:, None]) \
+        & (torch.arange(Bp, device=rows.device) < nrows)[:, None]
+    idx = torch.where(live, starts[:, None] + k[None, :], 0)
+    cols = torch.where(live, indices[idx], mp - 1)
+    vals = torch.where(live, data[idx], 0)
+    X = torch.zeros((Bp, mp), dtype=torch.int32, device=rows.device)
+    X.scatter_add_(1, cols, vals)
+    return _reduce31(X, p)
 
 
 def _spmv_batch(rowids: torch.Tensor, indices: torch.Tensor,
@@ -33,25 +57,47 @@ def _spmv_batch(rowids: torch.Tensor, indices: torch.Tensor,
 
 
 class DeviceCSR:
-    """A CSR matrix uploaded to device memory once.  Products are
-    (S, mp) with mp = bucket(m + 1) and a dead last column."""
+    """A CSR matrix uploaded to device memory once.  Blocks and products
+    are (rows, mp) with mp = bucket(m + 1) unless given, and a dead last
+    column; blocks are int32, the eliminator's in-place dtype."""
 
-    def __init__(self, A: CSR, device="cuda"):
+    def __init__(self, A: CSR, device="cuda", mp: Optional[int] = None):
         self.n, self.m = A.n, A.m
         self.prime = A.prime
         self.device = torch.device(device)
-        self.mp = _size_bucket(A.m + 1, 64)
+        self.mp = mp if mp is not None else _size_bucket(A.m + 1, 64)
         nnz = A.nnz
         self.nnz = nnz
         lens = np.diff(A.indptr[:A.n + 1]).astype(np.int64)
+        self.maxlen = int(lens.max()) if A.n else 0
+        self.indptr = torch.as_tensor(
+            np.asarray(A.indptr[:A.n + 1], np.int64), device=self.device)
         self.rowids = torch.as_tensor(np.repeat(np.arange(A.n), lens),
                                       device=self.device)
-        self.indices = torch.as_tensor(
-            np.asarray(A.indices[:nnz], np.int64), device=self.device)
-        self.data = torch.as_tensor(np.asarray(A.data[:nnz], np.int32),
-                                    device=self.device)
+        # one dead entry past nnz (column mp - 1, value 0) keeps padded
+        # gather slots in range
+        ind = np.full(nnz + 1, self.mp - 1, np.int64)
+        ind[:nnz] = A.indices[:nnz]
+        dat = np.zeros(nnz + 1, np.int32)
+        dat[:nnz] = A.data[:nnz]
+        self.indices = torch.as_tensor(ind, device=self.device)
+        self.data = torch.as_tensor(dat, device=self.device)
+
+    def densify(self, rows: np.ndarray, Bp: Optional[int] = None
+                ) -> torch.Tensor:
+        """Dense (Bp, mp) int32 block of the given rows, balanced; rows
+        past len(rows) are zero.  Upload: len(rows) int64s."""
+        rows = np.asarray(rows, np.int64)
+        B = len(rows)
+        if Bp is None:
+            Bp = _size_bucket(max(B, 1), 8)
+        rp = np.zeros(Bp, np.int64)
+        rp[:B] = rows
+        return _densify(self.indptr, self.indices, self.data,
+                        torch.as_tensor(rp, device=self.device), B,
+                        self.prime, Bp, self.mp, max(self.maxlen, 1))
 
     def spmv(self, XT: torch.Tensor) -> torch.Tensor:
         """Batched x*A for device-resident (S, n) coefficient rows."""
-        return _spmv_batch(self.rowids, self.indices, self.data, XT,
-                           self.prime, self.mp)
+        return _spmv_batch(self.rowids, self.indices[:self.nnz],
+                           self.data[:self.nnz], XT, self.prime, self.mp)

@@ -1,21 +1,27 @@
-"""The echelonization engine: structural pivot rounds and the dense
-finishers.
+"""The echelonization engine: rounds of structural pivots and sparse Schur
+complements, then the dense or sparse finishers.
 
-Port of spasm_tpu/echelonize.py.  Round 0 finds structural pivots on the
-host, then stops when nothing is left (status 1), when the free columns
-fit the device-resident rank finisher (status 3, no L), or when too few
-pivots were found or the sampled Schur complement is dense (status 2).
-The finishers then run on `device` (default "cuda"):
+Port of spasm_tpu/echelonize.py (the reference's spasm_echelonize.c:
+473-617).  Each round finds structural pivots on the host and stops
+when nothing is left (status 1), when the free columns fit the
+device-resident rank finisher (status 3, no L), or when too few pivots
+were found or the sampled Schur complement is dense (status 2);
+otherwise the sparse Schur complement of the remaining rows
+(`schur_sparse_reduced` through the reduced basis and kernel B1 without
+L, `schur.schur_sparse` with L or on small inputs) becomes the next
+round's matrix.  After `max_round` rounds, or on a stop, a finisher
+runs on `device` (default "cuda"):
   * `finish_device_dense` (status 3): reduced basis + row-sweep RREF;
   * `finish_dense`: blocked dense Schur blocks eliminated by the chunked
     `UEliminator` and factored by the column-sweep RREF (no L) or LU
     (L / complete PLUQ, `EchelonizeOptions(L=True, complete=True)`);
   * `finish_dense_lowrank`: random combinations for tall remainders, with
-    the probabilistic completion test `test_completion`.
+    the probabilistic completion test `test_completion`;
+  * `finish_gplu`: the sparse Gilbert-Peierls finisher on the host
+    (native C++, or its Python twin), with the same early abort.
 
-Paths outside the port so far raise NotImplementedError naming their
-ROADMAP item: the sparse Schur rounds and the GPLU finisher, checkpoint
-files, p > 65279.  (reference: spasm_echelonize.c:473-617)
+Checkpoint files and p > 65279 raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -36,8 +42,11 @@ from .field import Field
 from .hashing import PRNG
 from .pivots import find_structural_pivots
 from .profiling import annotate, phase
-from .schur import (estimate_density, schur_dense_block,
-                    schur_dense_block_device, schur_dense_randomized)
+from .schur import (_pack_nonzero_device, estimate_density,
+                    schur_dense_block,
+                    schur_dense_block_device, schur_dense_randomized,
+                    schur_sparse)
+from .triangular import sparse_triangular_solve
 from .dense.block import UEliminator, _unit_upper_inverse_log
 from .dense.elim import (_size_bucket, dense_lu, dense_lu_device, dense_rank,
                          dense_rref, dense_rref_device)
@@ -65,9 +74,8 @@ class EchelonizeOptions:
     L: bool = False
     complete: bool = False
     min_pivot_proportion: float = 0.1
-    # rounds of structural pivots + sparse Schur complement; a round
-    # that needs the sparse Schur complement raises (not ported), so only
-    # 0 (no round: the finisher takes the whole matrix) differs from 1
+    # rounds of structural pivots + sparse Schur complement; 0: no
+    # round, the finisher takes the whole matrix
     max_round: int = 3
     sparsity_threshold: float = 0.05
     tall_and_skinny_ratio: float = 5.0
@@ -98,6 +106,9 @@ class EchelonizeOptions:
 # columns) run the device-resident Schur + LU path; smaller blocks keep
 # the host sweep.
 _DEVICE_LU_MIN = 1 << 16
+# schur_sparse_reduced forms the Schur complement in blocks of this many
+# rows
+_SCHUR_BLOCK = 8192
 # finish_dense's element budget per block: the device Schur block is a
 # transient full-width (rows, m) array, so rows = budget // m
 _DENSE_ELEM_BUDGET = 64 << 20
@@ -129,6 +140,10 @@ class _LBuilder:
             r, c, v = th()
             if len(r):
                 self.add_batch(r, c, v)
+
+    def add(self, i: int, j: int, x: int):
+        self.add_batch(np.asarray([i], np.int64), np.asarray([j], np.int64),
+                       np.asarray([x], np.int64))
 
     def add_batch(self, i, j, x):
         self.rows.append(np.asarray(i, np.int64))
@@ -319,6 +334,58 @@ def _intra_levels(offs: np.ndarray, cols: np.ndarray,
     return lev
 
 
+class _GrowingCSR:
+    """Append-only CSR view with capacity doubling: the GPLU finisher
+    solves each chunk against the current U, and repacking U per chunk
+    would be quadratic over the run.  Rows append in amortized O(row
+    nnz); the views are trimmed arrays the native solver takes."""
+
+    def __init__(self, base: CSR):
+        self.n = base.n
+        self.m = base.m
+        self.prime = base.prime
+        self.field = base.field
+        nnz = base.nnz
+        self._indptr = np.zeros(max(2 * base.n + 8, 64) + 1, np.int64)
+        self._indptr[:base.n + 1] = base.indptr[:base.n + 1]
+        cap = max(2 * nnz + 64, 256)
+        self._indices = np.empty(cap, np.int32)
+        self._indices[:nnz] = base.indices[:nnz]
+        self._data = np.empty(cap, np.int32)
+        self._data[:nnz] = base.data[:nnz]
+        self._nnz = nnz
+
+    @property
+    def indptr(self) -> np.ndarray:
+        return self._indptr[:self.n + 1]
+
+    @property
+    def indices(self) -> np.ndarray:
+        return self._indices[:self._nnz]
+
+    @property
+    def data(self) -> np.ndarray:
+        return self._data[:self._nnz]
+
+    def append_row(self, cols: np.ndarray, vals: np.ndarray):
+        k = len(cols)
+        if self._nnz + k > self._indices.size:
+            cap = max(2 * self._indices.size, self._nnz + k)
+            for name in ("_indices", "_data"):
+                new = np.empty(cap, np.int32)
+                new[:self._nnz] = getattr(self, name)[:self._nnz]
+                setattr(self, name, new)
+        if self.n + 2 > self._indptr.size:
+            new = np.zeros(2 * self._indptr.size, np.int64)
+            new[:self.n + 1] = self._indptr[:self.n + 1]
+            self._indptr = new
+        self._indices[self._nnz:self._nnz + k] = cols
+        self._data[self._nnz:self._nnz + k] = vals
+        self._nnz += k
+        self.n += 1
+        self._indptr[self.n] = self._nnz
+
+
 class LU:
     """Result object (the reference's struct spasm_lu, spasm.h:64-72).
     U and L are materialized from the device on first access, so callers
@@ -338,8 +405,11 @@ class LU:
         self._l_thunk = l_thunk
         self.p = p              # (r,) original row of pivot k
         self.complete = complete
-        # finisher stage wall clocks (seconds) when SPASM_PROFILE_FINISH=1
+        # stage wall clocks (seconds) when SPASM_PROFILE_FINISH=1
         self.profile: dict = {}
+        # one dict per round: structural pivots, sampled Schur density,
+        # nnz of the sparse Schur complement (the keys a round reached)
+        self.rounds: List[dict] = []
 
     @property
     def U(self) -> CSR:
@@ -372,6 +442,7 @@ class _Engine:
         self.elim = UEliminator(A.m, A.prime, self.device)
         self._fp: Optional[bytes] = None
         self.profile: dict = {}
+        self.rounds: List[dict] = []
 
     @property
     def fingerprint(self) -> bytes:
@@ -528,6 +599,58 @@ class _Engine:
             self.Lp.extend(p_out[prows].tolist())
         self._stage("merge", ts)
         return rank
+
+    def schur_sparse_reduced(self, S: CSR, rows_p: np.ndarray, n: int,
+                             p_in) -> tuple:
+        """Sparse Schur complement through the reduced basis (no L): the
+        rows' residues form in the compacted free-column domain against
+        R (built by kernel B1), in blocks of _SCHUR_BLOCK rows, and
+        their nonzeros are packed back to CSR.  Block b's forming runs
+        on the device while the host packs block b - 1 and prepares
+        block b + 1.  Returns (S2, p_out): row k of S2 is original row
+        p_out[k].  (reference: spasm_schur, spasm_schur.c:61-193)"""
+        from .dense.reduced import ReducedBasis
+        ts = time.time()
+        qfree = np.nonzero(self.U.qinv < 0)[0]
+        rb = ReducedBasis(self.m, self.prime, qfree, self.U.n, self.device)
+        with phase("reduced_basis"):
+            rb.build(*self.U.flat_store())
+        ts = self._stage("reduced_basis", ts)
+        rb.set_entries(S.indices, S.data, S.nnz)
+        counts = np.zeros(n, np.int64)
+        cols, vals = [], []
+        p_out = (np.asarray(p_in, np.int64)[rows_p[:n]]
+                 if p_in is not None else np.asarray(rows_p[:n], np.int64))
+
+        def drain(b0, packed):
+            r, c, v = packed
+            counts[b0:b0 + _SCHUR_BLOCK] += np.bincount(
+                r, minlength=min(_SCHUR_BLOCK, n - b0))
+            cols.append(qfree[c].astype(np.int32))
+            vals.append(v)
+
+        pending = None              # (b0, formed block, rows) of block b - 1
+        for b0 in range(0, n, _SCHUR_BLOCK):
+            idx = rows_p[b0:b0 + _SCHUR_BLOCK]
+            eidx, coeff = rb.flat_rows(S.indptr, idx)
+            # block b - 1's entries cross to the host before block b is
+            # queued behind them, then drain while block b forms
+            packed = (_pack_nonzero_device(pending[1], pending[2], rb.nq)
+                      if pending is not None else None)
+            Xd = rb.form_block(eidx, coeff)
+            if packed is not None:
+                drain(pending[0], packed)
+            pending = (b0, Xd, len(idx))
+        if pending is not None:
+            drain(pending[0], _pack_nonzero_device(pending[1], pending[2],
+                                                   rb.nq))
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        S2 = CSR(n, self.m, self.field, indptr,
+                 np.concatenate(cols) if cols else np.empty(0, np.int32),
+                 np.concatenate(vals) if vals else np.empty(0, np.int32))
+        self._stage("schur_sparse", ts)
+        return S2, p_out
 
     def test_completion(self, S: CSR, p: np.ndarray, n: int) -> bool:
         """Probabilistic early-abort test with ceil(128 / log2 p) random
@@ -892,9 +1015,114 @@ class _Engine:
         if prof:
             log.info("[finish/device] profile: %s",
                      {k: round(v, 3) for k, v in tprof.items()})
-        self.profile = tprof
+        self.profile.update(tprof)
         log.info("[finish/device] done in %.1fs, %d new pivots",
                  time.time() - t0, self.U.n - old_un)
+
+    @annotate("finish_gplu")
+    def finish_gplu(self, S: CSR, p: np.ndarray, n: int, p_in):
+        """Sparse Gilbert-Peierls finisher with leftmost pivoting and the
+        probabilistic early abort (echelonize_GPLU,
+        spasm_echelonize.c:54-187), on the host: native C++ when the
+        library builds, its Python twin otherwise."""
+        from . import native
+        if native.available():
+            return self._finish_gplu_native(S, p, n, p_in)
+        return self._finish_gplu_py(S, p, n, p_in)
+
+    def _finish_gplu_native(self, S: CSR, p: np.ndarray, n: int, p_in,
+                            chunk: int = 8192):
+        """Chunks of `chunk` rows through native.gplu; without L, a chunk
+        that finds no pivot runs the completion test on the rest."""
+        from . import native
+        want_L = self.L is not None
+        k = 0
+        t0 = time.time()
+        old_un = self.U.n
+        # one snapshot; new rows append in amortized O(nnz)
+        Ug = _GrowingCSR(self.U.snapshot_csr())
+        while k < n:
+            rows = np.asarray(p[k:k + chunk], np.int64)
+            row_origin = (np.asarray(p_in, np.int64)[rows]
+                          if p_in is not None else rows)
+            # without L the run may stop once no free column remains;
+            # with L every row must be solved (its coefficients)
+            max_piv = n if want_L else min(n - k, self.m - self.U.n)
+            if max_piv <= 0 and not want_L:
+                break
+            npiv, urows, (li, lj, lx), piv_origin = native.gplu(
+                S, rows, row_origin, Ug, self.U.qinv, self.prime, want_L,
+                max(max_piv, 1))
+            if urows:
+                goffs = np.zeros(len(urows) + 1, np.int64)
+                goffs[1:] = np.cumsum([len(c) for c, _ in urows])
+                gpiv = np.asarray([int(c[0]) for c, _ in urows], np.int64)
+                gcols = np.concatenate([c for c, _ in urows])
+                gvals = np.concatenate([v for _, v in urows])
+                self.U.add_rows_bulk(gpiv, goffs, gcols.astype(np.int32),
+                                     gvals.astype(np.int32))
+                self.elim.append_segment(goffs, gcols, gvals, gpiv)
+                for cols, vals in urows:
+                    Ug.append_row(cols, vals)
+            if want_L and li.size:
+                self.L.add_batch(li, lj, lx)
+            self.Lp.extend(int(v) for v in piv_origin)
+            k += chunk
+            if k < n and npiv == 0 and not want_L:
+                if self.test_completion(S, p[k:], n - k):
+                    log.info("[GPLU] early abort: completion test passed")
+                    break
+        log.info("[GPLU] done in %.1fs, %d new pivots",
+                 time.time() - t0, self.U.n - old_un)
+
+    def _finish_gplu_py(self, S: CSR, p: np.ndarray, n: int, p_in):
+        """Row by row with the scalar triangular solver; without L, more
+        than max(10, n / 100) rows in a row without a pivot run the
+        completion test on the rest (once until the next pivot)."""
+        m = self.m
+        r_ub = min(S.n, m)
+        x = np.zeros(m, dtype=np.int64)
+        F = self.field
+        rows_since_piv = 0
+        early_done = False
+        qinv = self.U.qinv
+        Ug = _GrowingCSR(self.U.snapshot_csr())
+        for k in range(n):
+            if self.L is None and self.U.n == r_ub:
+                log.info("[GPLU] full rank reached")
+                break
+            if (self.L is None and not early_done and rows_since_piv > 10
+                    and rows_since_piv > n / 100):
+                log.info("[GPLU] testing for early abort...")
+                if self.test_completion(S, p[k:], n - k):
+                    break
+                early_done = True
+            rows_since_piv += 1
+            inew = int(p[k])
+            iorig = int(p_in[inew]) if p_in is not None else inew
+            pattern, x = sparse_triangular_solve(Ug, S, inew, qinv, x)
+            live = pattern[x[pattern] != 0]
+            cand = live[qinv[live] < 0]
+            if self.L is not None:
+                onpiv = live[qinv[live] >= 0]
+                if onpiv.size:
+                    self.L.add_batch(np.full(onpiv.size, iorig, np.int64),
+                                     qinv[onpiv], x[onpiv])
+            if cand.size == 0:
+                continue
+            jpiv = int(cand.min())
+            pivval = int(x[jpiv])
+            if self.L is not None:
+                self.L.add(iorig, self.U.n, pivval)
+            self.Lp.append(iorig)
+            keep = np.sort(cand)
+            vals = F.mul(np.int64(F.inverse(pivval)), x[keep])
+            cp, vp = self.U.add_row(jpiv, keep, vals)
+            self.elim.append_rows([(cp.astype(np.int64), vp, jpiv)],
+                                  flush=False)
+            Ug.append_row(cp, vp)
+            rows_since_piv = 0
+            early_done = False
 
 
 def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
@@ -920,50 +1148,76 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
     log.info("[echelonize] start on %d x %d, %d nnz", n, m, A.nnz)
     eng = _Engine(A, opts, device)
     S = A
+    p_in = None                # original row of each row of S (None: S = A)
     npiv = 0
     p = np.arange(n, dtype=np.int64)
     status = 0
     density = A.nnz / max(n * m, 1)
-    itemsize = 2                         # int16 storage (p <= 65279)
-    # round 0 of the reference's round loop; every round after it needs
-    # a sparse Schur complement, which is not ported
-    if opts.max_round > 0 and S.nnz == 0:
-        status = 1
-    elif opts.max_round > 0:
-        log.info("[echelonize] round 0")
-        npiv, p = eng.extract_structural(S)
-        nfree = m - eng.U.n
-        basis_bytes = (eng.U.n + min(S.n - npiv, nfree)) * nfree * itemsize
+    # bytes per element of the reduced basis and the finisher's blocks
+    # (int16 while p <= 65535); the wider tiers get a quarter of the
+    # width, as in the JAX package on one device
+    itemsize = 2 if A.prime <= 65535 else 4
+    wcap = opts.device_dense_width if itemsize == 2 \
+        else opts.device_dense_width // 4
+    for rnd in range(opts.max_round):
+        if S.nnz == 0:
+            status = 1
+            break
+        log.info("[echelonize] round %d", rnd)
+        ts = time.time()
+        npiv, p = eng.extract_structural(S, p_in)
+        ts = eng._stage("pivots", ts)
+        eng.rounds.append({"pivots": npiv})
         if eng.U.n == m and not opts.L:
             log.info("[echelonize] full column rank from structural "
                      "pivots")
             status = 1
+            break
         # once the free columns fit a dense device block, the remaining
-        # rank belongs to the device finisher
-        elif (not opts.L and opts.enable_dense
-                and 0 < nfree <= opts.device_dense_width
+        # rank belongs to the device finisher: no further sparse rounds
+        nfree = m - eng.U.n
+        basis_bytes = (eng.U.n + min(S.n - npiv, nfree)) * nfree * itemsize
+        if (not opts.L and opts.enable_dense
+                and 0 < nfree <= wcap
                 and (S.n - npiv) * nfree >= opts.device_dense_min
                 and basis_bytes <= opts.device_dense_mem):
             log.info("[echelonize] %d free columns fit the device "
                      "finisher; skipping sparse rounds", nfree)
             status = 3
-        elif npiv < opts.min_pivot_proportion * min(S.n, m - eng.U.n):
+            break
+        if npiv < opts.min_pivot_proportion * min(S.n, m - eng.U.n):
             log.info("[echelonize] not enough pivots found; stopping")
             status = 2
-        else:
-            with phase("density_estimate"):
-                density = estimate_density(S, p[npiv:], S.n - npiv,
-                                           eng.U.snapshot_csr(),
-                                           eng.U.qinv, 100, seed=1)
-            if density > opts.sparsity_threshold:
-                log.info("[echelonize] Schur complement is dense (%.2f%%)",
-                         100 * density)
-                status = 2
+            break
+        U_csr = eng.U.snapshot_csr()
+        with phase("density_estimate"):
+            # fresh sample rows every round (spasm_schur.c:24)
+            density = estimate_density(S, p[npiv:], S.n - npiv, U_csr,
+                                       eng.U.qinv, 100, seed=1 + rnd)
+        ts = eng._stage("density_estimate", ts)
+        eng.rounds[-1]["density"] = density
+        if density > opts.sparsity_threshold:
+            log.info("[echelonize] Schur complement is dense (%.2f%%)",
+                     100 * density)
+            status = 2
+            break
+        nrows_s = S.n - npiv
+        use_rb_schur = (eng.L is None and nfree > 0
+                        and eng.U.n * nfree * itemsize
+                        <= opts.device_dense_mem // 2
+                        and nrows_s * m >= (1 << 21))
+        with phase("schur_sparse"):
+            if use_rb_schur:
+                S, p_in = eng.schur_sparse_reduced(S, p[npiv:], nrows_s,
+                                                   p_in)
             else:
-                _not_ported("the sparse Schur rounds (schur_sparse, "
-                            "schur_sparse_reduced)",
-                            "the Schur rounds and GPLU")
-    if status == 0:
+                S, p_in = schur_sparse(S, p[npiv:], nrows_s,
+                                       LU(eng.U.n, U_csr, eng.U.qinv),
+                                       eng.L, p_in, eliminator=eng.elim)
+                eng._stage("schur_sparse", ts)
+        eng.rounds[-1]["schur_nnz"] = S.nnz
+        log.info("[echelonize] round %d: Schur complement %d x %d, %d nnz",
+                 rnd, S.n, m, S.nnz)
         npiv = 0
         p = np.arange(S.n, dtype=np.int64)
 
@@ -976,25 +1230,27 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
         use_device_finish = (
             status == 3
             or (not opts.L and opts.enable_dense
-                and 0 < nfree <= opts.device_dense_width
+                and 0 < nfree <= wcap
                 and nrem * nfree >= opts.device_dense_min
                 and (eng.U.n + min(nrem, nfree)) * nfree * itemsize
                 <= opts.device_dense_mem
                 and (density > opts.sparsity_threshold
                      or (opts.enable_tall_and_skinny
                          and aspect > opts.tall_and_skinny_ratio))))
+        ts = time.time()
         if use_device_finish:
             eng.finish_device_dense(S, p[npiv:], nrem)
         elif (opts.enable_tall_and_skinny
                 and aspect > opts.tall_and_skinny_ratio):
             eng.finish_dense_lowrank(S, p[npiv:], nrem)
         elif opts.enable_dense and density > opts.sparsity_threshold:
-            eng.finish_dense(S, p[npiv:], nrem, None)
+            eng.finish_dense(S, p[npiv:], nrem, p_in)
         elif opts.enable_GPLU:
-            _not_ported("finish_gplu", "the Schur rounds and GPLU")
+            eng.finish_gplu(S, p[npiv:], nrem, p_in)
         else:
             log.info("[echelonize] no finisher enabled; "
                      "incomplete echelonization returned")
+        eng._stage("finisher", ts)
 
     r = eng.U.n
     fact = LU(r, None, eng.U.qinv.copy(), u_thunk=eng.U.snapshot_csr)
@@ -1003,6 +1259,7 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
         fact.p = np.asarray(eng.Lp[:r], dtype=np.int64)
         fact.complete = opts.complete
     fact.profile = eng.profile
+    fact.rounds = eng.rounds
     nnz = eng.U.nnz()
     log.info("[echelonize] done in %.1fs; rank %d%s",
              time.time() - t0, r,

@@ -10,6 +10,7 @@ happens on first use, never at import; when no toolchain is available
 
 Surface (the subset the ported paths call):
   solve_batch        — parallel batched sparse triangular solves
+  gplu               — sequential Gilbert-Peierls LU with leftmost pivots
   cycle_free_pivots  — greedy alternating-cycle-free pivot search
   fl_column_pivots   — Faugere-Lachartre pass on columns
   topo_order         — topological order of the pivotal rows
@@ -75,6 +76,16 @@ def available() -> bool:
         I64, I32, I32, ctypes.c_int32,
         I64, ctypes.c_int64, I64, ctypes.c_int64, ctypes.c_int32, I64]
     lib.spasm_solve_fetch.argtypes = [I64, I32, I32]
+    # widths follow the C signatures in spasm_kernels.cpp (i64 = int64_t,
+    # i32 = int32_t): a mismatch corrupts results without an error
+    lib.spasm_gplu.restype = ctypes.c_int64
+    lib.spasm_gplu.argtypes = [
+        I64, I32, I32, ctypes.c_int32, ctypes.c_int32,
+        I64, ctypes.c_int64, I64,
+        I64, I32, I32, ctypes.c_int32,
+        I64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64]
+    lib.spasm_gplu_sizes.argtypes = [I64]
+    lib.spasm_gplu_fetch.argtypes = [I64, I32, I32, I64, I64, I32, I64]
     lib.spasm_cycle_free_pivots.restype = ctypes.c_int64
     lib.spasm_cycle_free_pivots.argtypes = [
         I64, I32, ctypes.c_int32, ctypes.c_int32, I64, I64,
@@ -172,3 +183,41 @@ def solve_batch(U, B, rows, qinv, prime: int, nthreads: int = 0,
         out.append((cols[off:off + ln].copy(), vals[off:off + ln].copy()))
         off += ln
     return out
+
+
+def gplu(S, rows, row_origin, U0, qinv: np.ndarray, prime: int,
+         want_L: bool, max_pivots: int):
+    """Sequential GPLU of rows of S against the basis U0: each row is
+    solved against U0 and the rows found before it, and its leftmost
+    non-pivotal nonzero becomes a new pivot.  qinv (int64, contiguous) is
+    updated in place.  Returns (npiv, u_rows [(cols, vals)], l_triplets
+    (i, j, x), piv_origin)."""
+    if qinv.dtype != np.int64 or not qinv.flags.c_contiguous:
+        raise TypeError("gplu updates qinv in place: int64, contiguous")
+    rows = _arr64(rows)
+    ro = _arr64(row_origin) if row_origin is not None else None
+    npiv = _lib.spasm_gplu(
+        _p64(_arr64(S.indptr)), _p32(_arr32(S.indices)),
+        _p32(_arr32(S.data)), S.n, S.m,
+        _p64(rows), len(rows), _p64(ro) if ro is not None else None,
+        _p64(_arr64(U0.indptr)), _p32(_arr32(U0.indices)),
+        _p32(_arr32(U0.data)), U0.n,
+        _p64(qinv), prime, 1 if want_L else 0, max_pivots)
+    sizes = np.empty(3, np.int64)
+    _lib.spasm_gplu_sizes(_p64(sizes))
+    nu, unnz, lnnz = (int(s) for s in sizes)
+    u_lens = np.empty(max(nu, 1), np.int64)
+    u_cols = np.empty(max(unnz, 1), np.int32)
+    u_vals = np.empty(max(unnz, 1), np.int32)
+    l_i = np.empty(max(lnnz, 1), np.int64)
+    l_j = np.empty(max(lnnz, 1), np.int64)
+    l_x = np.empty(max(lnnz, 1), np.int32)
+    piv_origin = np.empty(max(nu, 1), np.int64)
+    _lib.spasm_gplu_fetch(_p64(u_lens), _p32(u_cols), _p32(u_vals),
+                          _p64(l_i), _p64(l_j), _p32(l_x),
+                          _p64(piv_origin))
+    offs = np.concatenate(([0], np.cumsum(u_lens[:nu])))
+    urows = [(u_cols[offs[k]:offs[k + 1]].copy(),
+              u_vals[offs[k]:offs[k + 1]].copy()) for k in range(nu)]
+    return (int(npiv), urows, (l_i[:lnnz], l_j[:lnnz], l_x[:lnnz]),
+            piv_origin[:nu])

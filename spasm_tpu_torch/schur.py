@@ -1,18 +1,18 @@
-"""Dense Schur complement blocks and the density estimate of the dense
-finishers.
+"""Schur complements (sparse and dense) and the density estimate.
 
-Port of the parts of spasm_tpu/schur.py that the dense finishers call
-(the reference's spasm_schur.c): batched triangular solves
-(`solve_rows`, native C++ or the scalar host solver), the sampled
-density estimate, and the dense Schur blocks, eliminated on the device
-by the chunked `UEliminator` (dense/block.py) and left there.  The
-sparse Schur complement (`schur_sparse` and its packing) belongs to the
-sparse Schur rounds, which are not ported yet (ROADMAP: the Schur rounds
-and GPLU).
+Port of spasm_tpu/schur.py (the reference's spasm_schur.c): batched
+triangular solves (`solve_rows`, native C++ or the scalar host solver),
+the sampled density estimate, the sparse Schur complement of a round
+(`schur_sparse`: rows densified on the device from one upload of the
+matrix entries, eliminated by the chunked `UEliminator` (dense/block.py)
+and packed back to nonzeros; or, below _DEVICE_THRESHOLD, solved on the
+host), and the dense Schur blocks of the dense finishers, eliminated on
+the device and left there.  Rows commit in input order, so S is
+deterministic (the reference commits first come, first served).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ from .profiling import annotate
 from .triangular import sparse_triangular_solve
 
 _DEVICE_THRESHOLD = 1 << 21    # rows * m below this: the host path wins
+_SCHUR_ROWS = 2048             # rows per device block of schur_sparse
 
 
 def solve_rows(U: CSR, B: CSR, rows, qinv: np.ndarray, prime: int):
@@ -89,6 +90,86 @@ def _block_rows_device(A: CSR, rows: np.ndarray, Bp: int, mp: int,
 def _origins(rows, p_in) -> np.ndarray:
     rows = np.asarray(rows, np.int64)
     return np.asarray(p_in, np.int64)[rows] if p_in is not None else rows
+
+
+def _pack_nonzero_device(Xd: torch.Tensor, nrows: int, m: int):
+    """The nonzero entries of Xd[:nrows, :m] (padded rows and the dead
+    columns left out) as flat (rows, cols, vals) int32 numpy arrays,
+    row-major sorted.  Only the packed entries cross to the host, in one
+    copy, never the dense block (torch.nonzero waits for Xd)."""
+    sub = Xd[:nrows, :m]
+    rc = torch.nonzero(sub)                         # (cnt, 2), row-major
+    packed = torch.stack([rc[:, 0].to(torch.int32), rc[:, 1].to(torch.int32),
+                          sub[rc[:, 0], rc[:, 1]].to(torch.int32)])
+    r, c, v = packed.cpu().numpy()
+    return r, c, v
+
+
+def schur_sparse(A: CSR, p: np.ndarray, n: int, fact, L,
+                 p_in: Optional[np.ndarray], eliminator=None,
+                 use_device="auto") -> Tuple[CSR, np.ndarray]:
+    """Schur complement of rows p[0:n] of A w.r.t. the pivots of fact.U.
+
+    Returns (S, p_out): S has A.m columns, entries only on non-pivotal
+    columns; row k of S is original row p_out[k].  Elimination
+    coefficients go to the L builder when there is one.
+    (reference: spasm_schur, spasm_schur.c:61-193)
+
+    Device branch (use_device, "auto": n * m >= _DEVICE_THRESHOLD, and a
+    non-empty eliminator): blocks of rows densify on the eliminator's
+    device from one upload of A's entries (halved while a block exceeds
+    256 Mi elements), are eliminated against the chunked basis and come
+    back as packed nonzeros.  Host branch: batched triangular solves.
+    (The JAX package's est_density and block_size arguments are left
+    out: nothing reads the first, nothing sets the second.)"""
+    qinv = fact.qinv
+    m = A.m
+    p_out = np.empty(n, dtype=np.int64)
+    if use_device == "auto":
+        use_device = n * m >= _DEVICE_THRESHOLD
+    if use_device and eliminator is not None and eliminator.nrows > 0:
+        from .device_csr import DeviceCSR
+        mp = _size_bucket(m + 1, 64)
+        bs = _SCHUR_ROWS
+        while bs > 256 and bs * mp > (256 << 20):
+            bs //= 2
+        dcsr = DeviceCSR(A, device=eliminator.device, mp=mp)
+        piv_mask = qinv >= 0
+        tri_c: List[np.ndarray] = []
+        tri_v: List[np.ndarray] = []
+        counts = np.zeros(n, np.int64)
+        for b0 in range(0, n, bs):
+            idx = p[b0:b0 + bs].astype(np.int64)
+            Xd = dcsr.densify(idx, Bp=_size_bucket(len(idx), 8))
+            Xd = eliminator.eliminate_device(Xd)
+            r, c, v = _pack_nonzero_device(Xd, len(idx), m)
+            piv = piv_mask[c]
+            iorigs = _origins(idx, p_in)
+            p_out[b0:b0 + len(idx)] = iorigs
+            counts[b0:b0 + len(idx)] = np.bincount(r[~piv],
+                                                   minlength=len(idx))
+            tri_c.append(c[~piv])
+            tri_v.append(v[~piv])
+            if L is not None and np.any(piv):
+                L.add_batch(iorigs[r[piv]], qinv[c[piv]], v[piv])
+        # S straight from the row-major triplets
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        return CSR(n, m, A.field, indptr,
+                   np.concatenate(tri_c) if tri_c else np.empty(0, np.int32),
+                   np.concatenate(tri_v) if tri_v else np.empty(0, np.int32)
+                   ), p_out
+    rows_out = []
+    for k, (cols, vals) in enumerate(solve_rows(fact.U, A, p[:n], qinv,
+                                                A.prime)):
+        iorig = int(p_in[p[k]]) if p_in is not None else int(p[k])
+        p_out[k] = iorig
+        piv = qinv[cols] >= 0
+        rows_out.append((cols[~piv], vals[~piv]))
+        if L is not None and np.any(piv):
+            L.add_batch(np.full(int(piv.sum()), iorig, np.int64),
+                        qinv[cols[piv]], vals[piv])
+    return CSR.from_rows(n, m, A.prime, rows_out), p_out
 
 
 def schur_dense_block(A: CSR, rows: np.ndarray, p_in: Optional[np.ndarray],

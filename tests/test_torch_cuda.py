@@ -16,7 +16,7 @@ import torch
 
 from chip_checks import (b2_panel, b3_panel, deficient_panel, panel_block,
                          random_waves)
-from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize, sio
+from spasm_tpu_torch import CSR, EchelonizeOptions, _cuda, echelonize, sio
 from spasm_tpu_torch.certificate import factorization_verify
 from spasm_tpu_torch.dense.elim import dense_lu_device, dense_rref_device
 from spasm_tpu_torch.dense.modp import matmul_digits
@@ -28,6 +28,10 @@ from spasm_tpu_torch.dense.rowrref import (CLUSTER_COLS, TILE_W,
                                            row_sweep_tiles, row_sweep_variant)
 from spasm_tpu_torch.dense.subst import (_subst_waves_plain, nred_for,
                                          subst_waves)
+from spasm_tpu_torch.device_csr import DeviceCSR
+from spasm_tpu_torch.field import Field
+from spasm_tpu_torch.gen import matching_complex_boundary
+from spasm_tpu_torch.schur import _pack_nonzero_device
 
 pytestmark = pytest.mark.cuda
 
@@ -237,7 +241,8 @@ def test_complete_pluq_card_matches_cpu(dev, name):
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 3), (17, 40, 9), (4096, 4096, 2048),
-                                   (64, 64, 22528)])
+                                   (64, 64, 22528), (80, 80, 80),
+                                   (40, 128, 512), (136, 24, 1024)])
 def test_matmul_digits_card_matches_cpu(dev, shape):
     n, k, m = shape
     p = 42013
@@ -266,3 +271,61 @@ def test_echelonize_card_matches_cpu(dev, name):
     assert np.array_equal(Ug.indptr, Uw.indptr)
     assert np.array_equal(Ug.indices[:Ug.nnz], Uw.indices[:Uw.nnz])
     assert np.array_equal(Ug.data[:Ug.nnz], Uw.data[:Uw.nnz])
+
+
+@pytest.mark.parametrize("p", [257, 42013, 65269])
+def test_densify_card_matches_cpu(dev, p):
+    """DeviceCSR.densify on the card against the CPU: duplicate entries,
+    the dead column, rows past len(rows)."""
+    rng = np.random.default_rng(p)
+    lens = rng.integers(0, 40, 3000)
+    indptr = np.concatenate(([0], np.cumsum(lens))).astype(np.int64)
+    cols = rng.integers(0, 5000, int(indptr[-1])).astype(np.int32)
+    cols[1::4] = cols[::4][:cols[1::4].size]
+    vals = rng.integers(-(p // 2), p // 2 + 1, cols.size).astype(np.int32)
+    A = CSR(3000, 5000, Field(p), indptr, cols, vals)
+    rows = rng.permutation(3000)[:2000]
+    want = DeviceCSR(A, device="cpu").densify(rows, Bp=2048)
+    got = DeviceCSR(A, device=dev).densify(rows, Bp=2048)
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(2048, 52224, 51975), (8192, 20480, 20107),
+                                   (37, 64, 60)])
+def test_pack_nonzero_card_matches_cpu(dev, shape):
+    """The nonzero packing (row-major nonzero, one stacked copy) on the
+    card against the CPU, at the main path's block
+    shapes (L-mode Schur blocks, reduced-basis blocks)."""
+    B, mp, m = shape
+    gen = torch.Generator().manual_seed(B)
+    X = torch.randint(-20000, 20001, (B, mp), dtype=torch.int32,
+                      generator=gen)
+    X[torch.rand((B, mp), generator=gen) < 0.99] = 0
+    X[B - 5:] = 3                        # padded rows, left out below
+    X = X.to(torch.int16)
+    want = _pack_nonzero_device(X, B - 5, m)
+    got = _pack_nonzero_device(X.to(dev), B - 5, m)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("opts", [dict(device_dense_width=0),
+                                  dict(complete=True)])
+def test_mk10_rounds_card_matches_cpu(dev, opts):
+    """mk10.b3's round loop (round 0, the sparse Schur complement, round
+    1, GPLU) on the card against its CPU run: rank, qinv, U (and L, p)."""
+    A = matching_complex_boundary(10, 3)
+    A = A.transpose() if A.n < A.m else A
+    o = EchelonizeOptions(**opts)
+    want = echelonize(A, o, device="cpu")
+    got = echelonize(A, o, device="cuda")
+    assert got.r == want.r == 2564 and got.rounds == want.rounds
+    assert np.array_equal(got.qinv, want.qinv)
+    pairs = [(got.U, want.U)]
+    if o.complete:
+        assert np.array_equal(got.p, want.p)
+        pairs.append((got.L, want.L))
+    for a, b in pairs:
+        assert np.array_equal(a.indptr, b.indptr)
+        assert np.array_equal(a.indices[:a.nnz], b.indices[:b.nnz])
+        assert np.array_equal(a.data[:a.nnz], b.data[:b.nnz])

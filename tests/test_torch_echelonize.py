@@ -15,9 +15,11 @@ from spasm_tpu import EchelonizeOptions as JOpts
 from spasm_tpu import echelonize as jechelonize
 from spasm_tpu import sio as jsio
 from spasm_tpu.csr import CSR as JCSR
+from spasm_tpu.gen import matching_complex_boundary as jmcb
 
 from spasm_tpu_torch import CSR, EchelonizeOptions, echelonize, sio
 from spasm_tpu_torch.cli import rank as rank_cli
+from spasm_tpu_torch.gen import matching_complex_boundary as mcb
 from tests.conftest import ALL_TEST_MATRICES, MATRIX
 
 torch.set_num_threads(2)
@@ -34,6 +36,55 @@ def test_rank_matches_jax_host_path(name, p):
     want = jechelonize(J, JOpts(enable_dense=False)).r
     fact = echelonize(A, EchelonizeOptions(**DEVICE_MIN0), device="cpu")
     assert fact.r == want
+
+
+@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("name", ALL_TEST_MATRICES + ["trefethen_2000.sms"])
+def test_default_options_match_jax(name, p):
+    """Default options: the round loop (sparse Schur rounds included)
+    and whichever finisher the JAX package picks."""
+    J, _ = jsio.load_csr(MATRIX / name, p)
+    A, _ = sio.load_csr(MATRIX / name, p)
+    _same_factor(jechelonize(J), echelonize(A, device="cpu"))
+
+
+def _mk10():
+    """matching_complex_boundary(10, 3) as the rank tool orients it,
+    4725 x 3150: round 0 leaves a sparse Schur complement (71608 nnz),
+    round 1 too few pivots, and GPLU finishes."""
+    J, A = jmcb(10, 3), mcb(10, 3)
+    if A.n < A.m:
+        J, A = J.transpose(), A.transpose()
+    return J, A
+
+
+@pytest.mark.parametrize("opts", [dict(device_dense_width=0), dict(),
+                                  dict(max_round=1), dict(max_round=2),
+                                  dict(max_round=1, device_dense_width=0),
+                                  dict(enable_dense=False)])
+def test_mk10_rounds_match_jax(opts, caplog):
+    J, A = _mk10()
+    with caplog.at_level("INFO", logger="spasm_tpu_torch"):
+        t = echelonize(A, EchelonizeOptions(**opts), device="cpu")
+    _same_factor(jechelonize(J, JOpts(**opts)), t)
+    assert t.r == 2564
+    assert len(t.rounds) == min(opts.get("max_round", 3), 2)
+    assert t.rounds[0]["pivots"] == 2513
+    if len(t.rounds) == 2:
+        assert t.rounds[0]["schur_nnz"] == 71608
+        assert t.rounds[1]["pivots"] == 48 and "[GPLU] done" in caplog.text
+
+
+@pytest.mark.parametrize("max_round", [1, 2])
+@pytest.mark.parametrize("name", ["BIOMD0000000424.int.mpl.sms", "dm.sms",
+                                  "p3.sms", "trefethen_500.sms",
+                                  "mat364.sms", "g1.sms"])
+def test_max_round_matches_jax(name, max_round):
+    J, _ = jsio.load_csr(MATRIX / name, 42013)
+    A, _ = sio.load_csr(MATRIX / name, 42013)
+    _same_factor(jechelonize(J, JOpts(max_round=max_round)),
+                 echelonize(A, EchelonizeOptions(max_round=max_round),
+                            device="cpu"))
 
 
 def _same_factor(j, t):
@@ -80,9 +131,6 @@ def test_tall_input_lowrank_and_completion(monkeypatch, caplog):
 
 @pytest.mark.parametrize("name,opts,match", [
     ("mat364.sms", dict(checkpoint_file="ck.npz"), "checkpoints"),
-    ("dm.sms", dict(), "Schur rounds"),       # sparse Schur complement
-    ("mat364.sms", dict(enable_dense=False, min_pivot_proportion=1.0),
-     "GPLU"),
 ])
 def test_outside_the_slice_raises(name, opts, match):
     A, _ = sio.load_csr(MATRIX / name, 42013)
@@ -115,7 +163,11 @@ def test_large_prime_raises():
 
 @pytest.mark.parametrize("name,want", [("u1.sms", "100"),
                                        ("example.sms", "8"),
-                                       ("empty.sms", "0")])
+                                       ("empty.sms", "0"),
+                                       # sparse round-0 Schur complements
+                                       ("dm.sms", "8"), ("cc.sms", "2"),
+                                       ("BIOMD0000000424.int.mpl.sms",
+                                        "41")])
 def test_rank_cli(name, want, capsys, monkeypatch):
     # the tool runs the finisher on the card; here it gets the CPU
     monkeypatch.setattr(rank_cli, "echelonize",

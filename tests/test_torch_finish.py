@@ -13,11 +13,13 @@ from spasm_tpu import EchelonizeOptions as JOpts
 from spasm_tpu import echelonize as jechelonize
 from spasm_tpu import sio as jsio
 from spasm_tpu.csr import CSR as JCSR
+from spasm_tpu.gen import matching_complex_boundary as jmcb
 
 from spasm_tpu_torch import CSR, EchelonizeOptions, echelonize, sio
 from spasm_tpu_torch.certificate import factorization_verify
+from spasm_tpu_torch.gen import matching_complex_boundary as mcb
 from spasm_tpu_torch.interop import lu_from_numpy
-from tests.conftest import MATRIX
+from tests.conftest import ALL_TEST_MATRICES, MATRIX
 
 torch.set_num_threads(2)
 TENG = sys.modules["spasm_tpu_torch.echelonize"]
@@ -150,13 +152,9 @@ def test_factorization_verify_judges_a_jax_lu(i):
     assert not factorization_verify(A, broken, 42)
 
 
-# complete PLUQ reaches finish_dense (or needs no finisher) on these; the
-# other fixtures leave a sparse Schur complement (not ported yet)
-PLUQ_FIXTURES = ["G2.sms", "chains.sms", "chains2.sms", "empty.sms",
-                 "l1.sms", "lower_trapeze.sms", "m1.sms", "medium.sms",
-                 "rectangular_h.sms", "rectangular_l.sms", "scc.sms",
-                 "scc3.sms", "singular.sms", "singular2.sms", "small.sms",
-                 "t1.sms", "tree_test.sms", "void.sms"]
+# every fixture, those whose round-0 Schur complement is sparse included
+# (round 1 and the finishers then run in L mode)
+PLUQ_FIXTURES = ALL_TEST_MATRICES
 
 
 @pytest.mark.parametrize("name", PLUQ_FIXTURES)
@@ -167,6 +165,20 @@ def test_complete_pluq_fixture_matches_jax(name):
     t = echelonize(A, EchelonizeOptions(complete=True), device="cpu")
     _same_factor(jechelonize(J, JOpts(complete=True)), t, with_L=True)
     assert np.array_equal(_lu_product(t), A.todense())
+
+
+def test_mk10_complete_pluq_matches_jax():
+    """mk10.b3 (4725 x 3150): round 0, the L-mode sparse Schur complement
+    through the device branch of schur_sparse (4725 x 3150 >= 2^21),
+    round 1, then GPLU in L mode; L, U and p bit-equal, A == L @ U by the
+    verifier."""
+    J, A = jmcb(10, 3), mcb(10, 3)
+    if A.n < A.m:
+        J, A = J.transpose(), A.transpose()
+    t = echelonize(A, EchelonizeOptions(complete=True), device="cpu")
+    _same_factor(jechelonize(J, JOpts(complete=True)), t, with_L=True)
+    assert t.r == 2564 and len(t.rounds) == 2
+    assert factorization_verify(A, t, 42)
 
 
 def test_device_lu_block_path_taken(monkeypatch):
