@@ -9,7 +9,8 @@ Phases, each fatal on failure (no failure is caught):
      at once) and the host native library (g++) from this checkout, and
      prints the seconds taken;
   3. kernels: B1 (substitution; on a synthetic schedule and on mk13.b5's
-     own, from its structural pivots), B2 (leftmost row sweep: the cluster
+     own, from its structural pivots; its int32-storage instantiation, "B1
+     wide", on mk12.b4's round-0 schedule at p = 65537 and 2^32 - 5), B2 (leftmost row sweep: the cluster
      variant at M = 2048, the pair at M = 22528) and B3 (tiled row sweep,
      on a rank-40 and on a full-rank panel) and B4 (the panel kernel, RREF
      and LU mode, the variant its n selects) against their plain torch
@@ -49,7 +50,21 @@ Phases, each fatal on failure (no failure is caught):
      device_dense_width=0 through the native GPLU finisher, bit-equal to
      the port's own CPU run.  B1 must launch exactly once per
      reduced-basis build (counted apart) and B4 in both modes;
-  7. a JSON line of the kernels (launches summed over the paths), then
+  7. the d = 3/4 prime tiers, with the launch counts zeroed again: (a)
+     mk12.b4 at p = 2^32 - 5 with default options (20107 free columns
+     pass the wide tiers' width cap of 16384: the rounds, round 0's sparse
+     Schur complement through the int32 R and B1 wide, round 1, whose
+     14284 free columns fit the cap, then the rank finisher on int32 basis
+     rows and the torch step sweep), once, with stage clocks; (b) the
+     same with device_dense_width = 81920 (the rank finisher in rows mode
+     from round 0) and (c) as (b) at 65537 (d = 3), cold and warm, all
+     three rank 39535 (a different rank is rerun on the host to tell the
+     matrix from the port); (d) the complete PLUQ of
+     synthetic_sparse(16000, 16000, 8, 2^32 - 5), once, its rank equal
+     to the rank path's, L and U materialized and verified.  B1 wide
+     must launch exactly once per reduced-basis build, and B1 (int16),
+     B2, B3 and B4 never;
+  8. a JSON line of the kernels (launches summed over the paths), then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -71,6 +86,8 @@ HERE = pathlib.Path(__file__).resolve().parent
 P = 42013                                   # the tools' default modulus
 MK = {"mk12.b4": (12, 4, 39535), "mk13.b5": (13, 5, 134211)}
 PLUQ16K_RANK = 15997                        # BENCH_r05.json pluq16k_rank
+P4 = 4294967291                             # 2^32 - 5, the top of d = 4
+P3 = 65537                                  # the first int32-stored prime
 # bounds: device memory rate, and the float32 rate outside the tensor
 # cores taken for the kernels' int32 CUDA-core work (no int32 peak is
 # listed for the card), NVIDIA H100 SXM
@@ -115,6 +132,8 @@ def build_phase() -> None:
                            if k in mangled), mangled)
             if "ILb1E" in mangled:      # the template with phase stamps
                 kernel += " (stamped)"
+            if kernel == "subst_waves":   # the storage instantiations
+                kernel += " (int32)" if "Wide" in mangled else " (int16)"
         elif kernel and "Used" in line:
             log(f"  {kernel}: {line.split(':', 1)[1].strip()}")
 
@@ -197,53 +216,60 @@ def b4_phase_split(P0, ip, rref: bool, variant: str, want, mode: str):
         + f"; total {(st[11] - st[6]) / 1e3:.3f} us")
 
 
-def b1_line(label, R0, waves, reps: int) -> dict:
+def b1_line(label, R0, waves, reps: int, p: int = P) -> dict:
     """B1 (one launch per call) against its plain version on R0 and one
     schedule: held bit-equal, timed (each timed call re-substitutes a
     copy in place), with the bound from this schedule's own bytes: every
     live row read and written once, every referenced row read once, the
     schedule arrays read once; a product and a sum per reference and
-    column."""
+    column.  R0's storage selects the instantiation: int16 B1, or int32
+    "B1 wide" (p > 65535)."""
     from chip_checks import cuda_ms
     from spasm_tpu_torch import _cuda
     from spasm_tpu_torch.dense.subst import _subst_waves_plain, subst_waves
     rows, ref_ptr, refs, coef, bounds = waves
     M = R0.shape[1]
+    key = "B1" if R0.dtype == torch.int16 else "B1 wide"
     got = R0.clone()
-    before = _cuda.launches["B1"]
-    subst_waves(got, *waves, P)
-    per_call = _cuda.launches["B1"] - before
+    before = _cuda.launches[key]
+    subst_waves(got, *waves, p)
+    per_call = _cuda.launches[key] - before
     want = R0.clone()
-    _subst_waves_plain(want, *waves, P)
+    _subst_waves_plain(want, *waves, p)
     touched = np.union1d(rows, refs).size + rows.size
     nbytes = touched * M * R0.element_size() + sum(a.nbytes for a in waves)
-    rec = _record("B1 subst_waves", "spasm_tpu_torch/csrc/subst.cu",
+    rec = _record(f"{key} subst_waves", "spasm_tpu_torch/csrc/subst.cu",
                   "spasm_tpu/dense/subst_pallas.py:68", [got], [want],
                   nbytes, 2 * refs.size * M)
     del want
-    ms = cuda_ms(lambda: subst_waves(got, *waves, P), reps)
-    plain_ms = cuda_ms(lambda: _subst_waves_plain(got, *waves, P), 1)
-    log(f"B1 {label}: {rows.size} live rows, {len(bounds) - 1} waves, "
-        f"{refs.size / max(rows.size, 1):.2f} references per row, M={M}; "
-        f"one-launch variant, {per_call} launch per call; kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+    ms = cuda_ms(lambda: subst_waves(got, *waves, p), reps)
+    plain_ms = cuda_ms(lambda: _subst_waves_plain(got, *waves, p), 1)
+    log(f"{key} {label} at p = {p}: {rows.size} live rows, "
+        f"{len(bounds) - 1} waves, "
+        f"{refs.size / max(rows.size, 1):.2f} references per row, M={M}, "
+        f"{R0.dtype}; one-launch variant, {per_call} launch per call; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), bit-equal")
     if per_call != 1:
-        sys.exit(f"chip_smoke: B1 made {per_call} launches in one call")
+        sys.exit(f"chip_smoke: {key} made {per_call} launches in one call")
     return dict(rec, ms=ms, plain_ms=plain_ms)
 
 
-def b1_real_schedule(A, tag: str, opts) -> dict:
+def b1_real_schedule(A, tag: str, opts, p: int = P) -> dict:
     """B1 on the schedule that round 0 of echelonize(A, opts) builds: its
     structural pivots, the reduced basis's waves (`subst_schedule`), R
-    of the basis's shape filled with seeded balanced values."""
+    of the basis's shape and storage for p filled with seeded balanced
+    values."""
+    from spasm_tpu_torch.csr import CSR
     from spasm_tpu_torch.dense.reduced import ReducedBasis, subst_schedule
     from spasm_tpu_torch.echelonize import _Engine
+    from spasm_tpu_torch.field import Field
     dev = torch.device("cuda")
+    A = CSR(A.n, A.m, Field(p), A.indptr, A.indices, A.data)   # +-1 entries
     eng = _Engine(A, opts, dev)
     eng.extract_structural(A)
     qfree = np.nonzero(eng.U.qinv < 0)[0]
-    rb = ReducedBasis(A.m, P, qfree, eng.U.n, dev)
+    rb = ReducedBasis(A.m, p, qfree, eng.U.n, dev)
     offs, cols, vals, pivcols, groups = eng.U.flat_store()
     pivmap = np.full(A.m + 1, rb.npad - 1, np.int64)
     pivmap[pivcols] = np.arange(len(pivcols))
@@ -251,11 +277,11 @@ def b1_real_schedule(A, tag: str, opts) -> dict:
                            rb.npad)
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
-    R0 = torch.randint(-(P // 2), P // 2 + 1, (rb.npad, rb.M),
-                       dtype=torch.int16, device=dev, generator=gen)
+    R0 = torch.randint(-(p // 2), p // 2 + 1, (rb.npad, rb.M),
+                       dtype=rb.dtype, device=dev, generator=gen)
     R0[-1] = 0
     rec = b1_line(f"on {tag}'s own schedule (R {rb.npad} x {rb.M})", R0,
-                  waves, 3)
+                  waves, 3, p)
     del R0
     torch.cuda.empty_cache()
     return rec
@@ -291,6 +317,11 @@ def kernel_phase(mats) -> dict:
                                  EchelonizeOptions())
     b1_real_schedule(mats["mk12.b4"], "mk12.b4",
                      EchelonizeOptions(device_dense_width=0))
+    # the int32-storage instantiation on the same schedule, d = 3 and 4
+    b1_real_schedule(mats["mk12.b4"], "mk12.b4",
+                     EchelonizeOptions(device_dense_width=0), P3)
+    out["B1 wide"] = b1_real_schedule(mats["mk12.b4"], "mk12.b4",
+                                      EchelonizeOptions(), P4)
 
     def sweeps(name, kern, plain, M, empty, replaces, full=False):
         X = (b3_panel(rng, "full", M, P) if full else
@@ -393,11 +424,13 @@ def _timed_rank(A, want: int, label: str, opts=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if fact.r != want:
+    if want is not None and fact.r != want:
         sys.exit(f"chip_smoke: {label} rank {fact.r} != {want}")
     runs = {k: v - before[k] for k, v in _cuda.launches.items()
             if v != before[k]}
-    log(f"{label}: rank {fact.r} (want {want}), wall {wall:.3f} s, "
+    log(f"{label}: rank {fact.r}"
+        + (f" (want {want})" if want is not None else "") + f", wall "
+        f"{wall:.3f} s, "
         f"peak device memory {peak:.2f} GiB, launches {runs}")
     return fact
 
@@ -640,6 +673,100 @@ def rounds_phase(mats) -> dict:
     return counts
 
 
+def _wide_rank(A, want: int, label: str, opts):
+    """_timed_rank for the wide tiers: a rank other than want is rerun on
+    the card's host (device="cpu") before the script fails, so the
+    message tells a prime dividing the matrix's elementary divisors (the
+    host agrees) from a fault of the card path (it does not)."""
+    from spasm_tpu_torch import echelonize
+    fact = _timed_rank(A, None, label, opts)
+    if fact.r != want:
+        host = echelonize(A, opts, device="cpu").r
+        sys.exit(f"chip_smoke: {label} rank {fact.r} on the card, {host} "
+                 f"on the host, {want} wanted")
+    return fact
+
+
+def wide_phase(mats) -> dict:
+    """The d = 3/4 prime tiers, with the launch counts zeroed first (see
+    the module docstring, phase 7).  mk12.b4's +-1 entries make it the
+    same matrix over any field."""
+    from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize
+    from spasm_tpu_torch.certificate import factorization_verify
+    from spasm_tpu_torch.csr import CSR
+    from spasm_tpu_torch.dense.reduced import ReducedBasis
+    from spasm_tpu_torch.field import Field
+    from spasm_tpu_torch.gen import synthetic_sparse
+    B = mats["mk12.b4"]
+    want = MK["mk12.b4"][2]
+    over = {p: CSR(B.n, B.m, Field(p), B.indptr, B.indices, B.data)
+            for p in (P4, P3)}
+    t0 = time.time()
+    A16 = synthetic_sparse(16000, 16000, 8, P4)
+    log(f"PLUQ16k at p = {P4}: {A16.n} x {A16.m}, {A16.nnz} nnz, generated "
+        f"in {time.time() - t0:.1f} s")
+    builds = [0]
+    build = ReducedBasis.build
+
+    def counted_build(self, *a):
+        builds[0] += 1
+        return build(self, *a)
+
+    ReducedBasis.build = counted_build
+    _cuda.reset_launches()
+    # (a) default options: the rounds (nfree 20107 > 65536 // 4); one
+    # call, like (d), to keep the script near half its time limit
+    os.environ["SPASM_PROFILE_FINISH"] = "1"
+    fact = _wide_rank(over[P4], want, f"mk12.b4 at p = {P4} (a: default "
+                      "options, the rounds; stage clocks synchronize)", None)
+    del os.environ["SPASM_PROFILE_FINISH"]
+    _round_lines(fact)
+    log("  (a) stages (s): " + json.dumps(
+        {k: round(v, 4) for k, v in fact.profile.items()}))
+    if len(fact.rounds) < 2 or "schur_nnz" not in fact.rounds[0]:
+        sys.exit("chip_smoke: (a) did not take the sparse Schur rounds")
+    # (b), (c): the rank finisher in rows mode on int32 basis rows
+    rows_mode = EchelonizeOptions(device_dense_width=4 * 20480)
+    for case, p in (("b", P4), ("c", P3)):
+        for run in ("cold", "warm"):
+            fact = _wide_rank(over[p], want, f"mk12.b4 at p = {p} ({case}: "
+                              "device_dense_width=81920, rows mode) "
+                              f"{run}", rows_mode)
+        _round_lines(fact)
+        if fact.rounds[-1].get("schur_nnz") is not None:
+            sys.exit(f"chip_smoke: ({case}) took a sparse Schur round")
+    # (d) complete PLUQ, its rank held to the rank path's
+    r0 = echelonize(A16, device="cuda").r
+    log(f"PLUQ16k at p = {P4} (d): rank {r0} through echelonize without L")
+    fact = _wide_rank(A16, r0, f"PLUQ16k at p = {P4} (d: complete PLUQ)",
+                      EchelonizeOptions(complete=True))
+    t0 = time.time()
+    U, L = fact.U, fact.L
+    t_mat = time.time() - t0
+    t0 = time.time()
+    ok = factorization_verify(A16, fact, 42)
+    log(f"  (d) factors on the host: U {U.nnz} nnz, L {L.nnz} nnz, "
+        f"materialized in {t_mat:.1f} s; factorization_verify {ok} "
+        f"({time.time() - t0:.1f} s)")
+    if not ok:
+        sys.exit("chip_smoke: (d) fails factorization_verify")
+    del fact, U, L
+    ReducedBasis.build = build
+    counts = dict(_cuda.launches)
+    calls = dict(_cuda.calls)
+    log(f"the wide tiers: launches {counts}; B1 wide over "
+        f"{calls['B1 wide']} calls, {builds[0]} reduced-basis builds")
+    _launched(counts, ("B1 wide",), "the wide tiers")
+    if not counts["B1 wide"] == calls["B1 wide"] == builds[0]:
+        sys.exit("chip_smoke: B1 wide did not launch exactly once per "
+                 "reduced-basis build")
+    narrow = {k: v for k, v in counts.items() if v and k != "B1 wide"}
+    if narrow:
+        sys.exit(f"chip_smoke: d = 2 kernels launched at p > 65535: "
+                 f"{narrow}")
+    return counts
+
+
 def main() -> int:
     t0 = time.time()
     kind = device_phase()
@@ -651,6 +778,7 @@ def main() -> int:
     counts = rank_path_phase(mats)
     counts4 = dense_finisher_phase()
     counts5 = rounds_phase(mats)
+    counts6 = wide_phase(mats)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "spasm_tpu"))
     if leaked:
@@ -661,6 +789,7 @@ def main() -> int:
     kernels["B1"]["launches"] = counts["B1"] + counts5["B1"]
     kernels["B4"]["launches"] = sum(c["B4 rref"] + c["B4 lu"]
                                     for c in (counts4, counts5))
+    kernels["B1 wide"]["launches"] = counts6["B1 wide"]
     log(f"chip_smoke: {time.time() - t0:.1f} s in all, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

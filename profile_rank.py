@@ -2,7 +2,8 @@
 """Device-time breakdown of the port's main paths on one NVIDIA card.
 
     python3 profile_rank.py [mk12.b4] [mk13.b5] [pluq16k] [mk12.b4.rounds]
-                            [mk12.b4.pluq]    (default: the first three)
+                            [mk12.b4.pluq] [mk12.b4.wide] [pluq16k.wide]
+                            (default: the first three)
 
 Cases (the instances of chip_smoke.py): mk12.b4 and mk13.b5, ranked as
 the rank tool orients them (the rank path's device finisher), pluq16k,
@@ -12,9 +13,15 @@ through the reference-shaped round loop (device_dense_width=0: round 0,
 the sparse Schur complement through the reduced basis, round 1, then
 finish_dense and its low-rank tail), and mk12.b4.pluq, its complete
 PLUQ (the L-mode sparse Schur complement through the UEliminator, round
-1, finish_dense in L mode).  For each: one warm-up call
+1, finish_dense in L mode); mk12.b4.wide and pluq16k.wide are mk12.b4
+with default options and PLUQ16k's complete PLUQ at p = 2^32 - 5 (the
+d = 4 tier: mk12.b4 takes the rounds there, its 20107 free columns
+above the wide tiers' width cap), traced on the device alone
+(ProfilerActivity.CUDA: no host events, so no `spasm/...` spans).  For
+each: one warm-up call
 of `echelonize(A, opts, device="cuda")`, three unprofiled warm calls
-(their walls show the spread), then one call under torch.profiler.  From
+(their walls show the spread; one for the wide cases, ~a minute a
+call), then one call under torch.profiler.  From
 that profiled call alone it prints:
   - its wall (host clock around the call and a device synchronize);
   - device busy time: the union of the intervals of the device events
@@ -48,7 +55,9 @@ from torch.profiler import ProfilerActivity, profile
 
 REPS = 3
 UNTRACED = {"mk12.b4.pluq"}
-GROUPS = (("B1 subst_waves", ("subst_waves",)),
+DEVICE_ONLY = {"mk12.b4.wide", "pluq16k.wide"}
+P4 = 4294967291
+GROUPS = (("B1 subst_waves (int16 / int32)", ("subst_waves",)),
           ("B4 panel_cluster/panel_coop", ("panel_cluster", "panel_coop")),
           ("B2 sweep_cluster / sweep_find+sweep_update",
            ("sweep_cluster", "sweep_find", "sweep_update")),
@@ -87,14 +96,21 @@ def case(tag: str):
     if tag == "pluq16k":
         return (synthetic_sparse(16000, 16000, 8, 42013),
                 EchelonizeOptions(complete=True), 15997)
-    opts = None
+    if tag == "pluq16k.wide":
+        from spasm_tpu_torch import echelonize
+        A = synthetic_sparse(16000, 16000, 8, P4)
+        return (A, EchelonizeOptions(complete=True),
+                echelonize(A, device="cuda").r)   # the rank path's rank
+    opts, prime = None, 42013
+    if tag == "mk12.b4.wide":
+        tag, prime = "mk12.b4", P4
     if tag == "mk12.b4.rounds":
         tag, opts = "mk12.b4", EchelonizeOptions(device_dense_width=0)
     elif tag == "mk12.b4.pluq":
         tag, opts = "mk12.b4", EchelonizeOptions(complete=True)
     nn, j, want = {"mk12.b4": (12, 4, 39535),
                    "mk13.b5": (13, 5, 134211)}[tag]
-    A = matching_complex_boundary(nn, j)
+    A = matching_complex_boundary(nn, j, prime)
     if A.n < A.m:                            # the rank tool's orientation
         A = A.transpose()
     return A, opts, want
@@ -128,7 +144,8 @@ def main() -> int:
     for tag in sys.argv[1:] or ["mk12.b4", "mk13.b5", "pluq16k"]:
         A, opts, want = case(tag)
         wall_of(echelonize, A, opts, want)         # warm-up
-        walls = [wall_of(echelonize, A, opts, want) for _ in range(REPS)]
+        reps = 1 if tag in DEVICE_ONLY else REPS
+        walls = [wall_of(echelonize, A, opts, want) for _ in range(reps)]
         if tag not in UNTRACED:
             trace(tag, echelonize, A, opts, want, walls)
         else:
@@ -145,8 +162,10 @@ def main() -> int:
 
 def trace(tag, echelonize, A, opts, want: int, walls) -> None:
     """One call under torch.profiler: busy, idle share, groups, spans."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if tag not in DEVICE_ONLY:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         wall = wall_of(echelonize, A, opts, want)
     events = prof.events()
     dev = [e for e in events

@@ -2,17 +2,17 @@
 with CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package `spasm_tpu` (kept beside it as the
-reference).  Ported so far, for primes p <= 65279 (the d = 2 digit tier,
-which holds the tools' default modulus 42013): `echelonize(A)` through
-the reference's round loop (host structural pivot search, sparse Schur
-complements) and every finisher — the device-resident rank finisher,
+reference).  Ported so far, for every odd prime p <= 2^32 - 5 (three
+digit tiers, dense/modp.py; the tools' default modulus is 42013):
+`echelonize(A)` through the reference's round loop (host structural
+pivot search, sparse Schur complements) and every finisher — the device-resident rank finisher,
 the blocked dense finisher (RREF, or LU for complete PLUQ:
 `EchelonizeOptions(L=True, complete=True)`), the low-rank finisher with
 its completion test and the GPLU finisher on the host — plus
 `certificate.factorization_verify` and the `rank` CLI
 (`python -m spasm_tpu_torch.cli.rank`).  Other paths (checkpoints,
-larger primes, the other tools) raise NotImplementedError naming their
-ROADMAP item.
+rank certificates, the other tools) raise NotImplementedError naming
+their ROADMAP item.
 
 Layout: the host modules (field, csr, hashing, sio, gen, pivots, spmv,
 triangular and the native C++ pivot search, triangular solves and GPLU) are

@@ -9,13 +9,14 @@ with ctypes; every pointer and the stream pass as c_void_p, and every C
 entry returns cudaGetLastError(), which `check` turns into an exception.
 
 `launches` counts the CUDA kernel launches each wrapper issued: B1 the
-substitution sweep (dense/subst.py, one per call), B2 and B3 the row
+substitution sweep (dense/subst.py, one per call; "B1 wide" its
+int32-storage instantiation, p > 65535), B2 and B3 the row
 sweeps (dense/rowrref.py; B2 counted again by variant, "B2 cluster" one
 launch per sweep, "B2 pair" two per Jordan step), B4 the panel steps of
 the column-sweep elimination (dense/panel.py), counted apart in RREF and
 LU mode and, again, by variant (cluster or cooperative).  `calls` counts
-the wrapper calls that launched B1 (reduced-basis builds) and B2
-(sweeps), so a run can show launches per call.  Nothing here runs at
+the wrapper calls that launched B1 or B1 wide (reduced-basis builds) and
+B2 (sweeps), so a run can show launches per call.  Nothing here runs at
 import.
 """
 from __future__ import annotations
@@ -34,11 +35,12 @@ _SOURCES = ("subst.cu", "row_sweep.cu", "panel.cu")
 _HEADERS = ("modp.cuh", "cluster.cuh")
 BUILD_DIR = _HERE.parent / "build" / "spasm_tpu_torch"
 
-launches: Dict[str, int] = {"B1": 0, "B2": 0, "B2 cluster": 0,
+launches: Dict[str, int] = {"B1": 0, "B1 wide": 0, "B2": 0,
+                             "B2 cluster": 0,
                              "B2 pair": 0, "B3": 0, "B4 rref": 0,
                              "B4 lu": 0, "B4 cluster": 0,
                              "B4 cooperative": 0}
-calls: Dict[str, int] = {"B1": 0, "B2": 0}
+calls: Dict[str, int] = {"B1": 0, "B1 wide": 0, "B2": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # set when this process compiled
@@ -110,6 +112,9 @@ def lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     L.spasm_subst_waves.restype = ci
     L.spasm_subst_waves.argtypes = [vp, ci, vp, ci, ci, ci, ci, ci, vp]
+    L.spasm_subst_waves_wide.restype = ci
+    L.spasm_subst_waves_wide.argtypes = [vp, ci, vp, ci, ci, ci, ci,
+                                         ctypes.c_longlong, vp]
     L.spasm_subst_cols.restype = ci
     L.spasm_subst_cols.argtypes = []
     L.spasm_row_sweep.restype = ci

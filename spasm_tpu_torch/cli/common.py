@@ -17,7 +17,8 @@ def add_input_args(ap: argparse.ArgumentParser):
     g.add_argument("--matrix", "-m", metavar="FILE", default=None,
                    help="Read the input matrix from FILE (default stdin)")
     g.add_argument("--modulus", "-p", metavar="P", type=int, default=42013,
-                   help="Perform arithmetic modulo P (default 42013)")
+                   help="Perform arithmetic modulo P, an odd prime <= "
+                   "2^32 - 5 (default 42013)")
 
 
 def add_echelonize_args(ap: argparse.ArgumentParser):

@@ -4,9 +4,11 @@
 // reduce31 is `_reduce31` (spasm_tpu/dense/sweep_pallas.py:47, copied
 // at subst_pallas.py:57), used by B1 and B2's pair variant; Fp (below)
 // serves B2's cluster variant, B3 and B4, and its Fermat inverse takes the
-// place of `_modinv32` (sweep_pallas.py:60).  Scope: the d == 2 digit
-// tier, p <= 65279, where 2 * (p/2)^2 < 2^31 so every division-free
-// update fits an int32 lane.
+// place of `_modinv32` (sweep_pallas.py:60).  Scope of both: the d == 2
+// digit tier, p <= 65279, where 2 * (p/2)^2 < 2^31 so every
+// division-free update fits an int32 lane (reduce31 also serves B1's
+// int16 storage up to p = 65535).  FpWide (below) is the field above
+// that, p <= 2^32 - 5, for the int32-storage instantiation of B1.
 #pragma once
 
 #include <cstdint>
@@ -74,6 +76,33 @@ struct Fp {
       a = red(a * a);
     }
     return result;
+  }
+};
+
+// The wide field, 65535 < p <= 2^32 - 5 (B1 on int32 storage): balanced
+// values fit int32, products of two are formed in 64 bits (< 2^47 at
+// d = 3, < 2^62 at d = 4) and summed in int64 before a reduction.
+struct FpWide {
+  unsigned long long p, mu, off;
+  long long half;
+  __host__ __device__ explicit FpWide(long long p_)
+      : p(static_cast<unsigned long long>(p_)),
+        mu(~0ull / static_cast<unsigned long long>(p_)),
+        off((1ull << 63) / static_cast<unsigned long long>(p_) *
+            static_cast<unsigned long long>(p_)),
+        half((p_ - 1) >> 1) {}
+  // Balanced x mod p for x >= -off, off the largest multiple of p <=
+  // 2^63 (so any int64 x with |x| <= 2^63 - p): u = x + off lies in
+  // [0, 2^64), and the Barrett quotient by mu = floor((2^64 - 1) / p)
+  // (__umul64hi) is short by at most 2.
+  __device__ __forceinline__ int red(long long x) const {
+    const unsigned long long u = static_cast<unsigned long long>(x) + off;
+    const unsigned long long q = __umul64hi(u, mu);
+    long long r = static_cast<long long>(u - q * p);             // [0, 3p)
+    const long long pl = static_cast<long long>(p);
+    if (r >= pl) r -= pl;
+    if (r >= pl) r -= pl;
+    return static_cast<int>(r > half ? r - pl : r);
   }
 };
 

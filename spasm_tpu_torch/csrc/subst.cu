@@ -4,7 +4,7 @@
 // (spasm_tpu/dense/subst_pallas.py:68, called through _subst_call :150
 // and run_schedule :254).  It computes, for every basis row k with
 // references, in topological order,
-//     R[k] <- R[k] - sum_s coef[s] * R[refs[s]]   (mod p, balanced int16)
+//     R[k] <- R[k] - sum_s coef[s] * R[refs[s]]   (mod p, balanced)
 // where R[k] already holds row k's scattered free entries.
 //
 // Order: the rows come grouped in waves.  Rows of one wave never reference
@@ -54,14 +54,26 @@
 //   * L2: all blocks advance through the waves at about the same pace, so
 //     the rows of recent waves stay in the 50 MB L2 across blocks.
 //
-// Arithmetic: nred products (|coef * R| <= (p/2)^2) are subtracted from
-// the int32 accumulator, which starts balanced, with nred * (p/2)^2 <
-// 2^31 - p, before each Barrett reduction (spasm::reduce31).
+// Storage, and one instantiation of the wave walk for each (a template
+// on the arithmetic, no runtime branch):
+//   * Narrow, int16 R (p <= 65535, the d = 2 tier and the d = 3 band
+//     that int16 still holds): nred products (|coef * R| <= (p/2)^2) are
+//     subtracted from the int32 accumulator, which starts balanced, with
+//     nred * (p/2)^2 < 2^31 - p, before each Barrett reduction
+//     (spasm::reduce31).  Lanes load 8 values.
+//   * Wide, int32 R (65535 < p <= 2^32 - 5): the products are formed in
+//     64 bits (< 2^47 at d = 3, < 2^62 at d = 4) and summed in int64,
+//     nred of them with nred * (p/2)^2 <= 2^63 - 2p (16 at d = 3, 2 at
+//     p = 2^32 - 5), before each 64-bit Barrett reduction
+//     (spasm::FpWide, __umul64hi).  Lanes load 4 values, so a row slot
+//     is 16 lanes and a block has 24 slots; the block still owns 64
+//     columns (256-byte row segments).  Two blocks fit an SM.
 //
 // Bound: memory.  Every live row read and written once and every
 // referenced row read once (~0.54 ms on chip_smoke's synthetic schedule,
-// ~3 ms on mk13.b5's); the references' re-reads by every row that names
-// them put ~5.4 GB (synthetic) and ~18 GB (mk13.b5) on HBM.
+// ~3 ms on mk13.b5's, int16); the references' re-reads by every row that
+// names them put ~5.4 GB (synthetic) and ~18 GB (mk13.b5) on HBM.  Int32
+// storage doubles every byte.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,13 +83,40 @@
 namespace {
 
 constexpr int kThreads = 384;
-constexpr int kVec = 8;                     // int16 columns per lane
 constexpr int kCols = 64;                   // columns per block
-constexpr int kLanes = kCols / kVec;        // lanes per row slot (8)
-constexpr int kSlots = kThreads / kLanes;   // row slots per block (48)
 constexpr int kU = 4;                       // references loaded per round
 
-__device__ __forceinline__ int4 load16(const int16_t* p) {
+// int16 storage: int32 partial sums, reduce31.
+struct Narrow {
+  using T = int16_t;
+  using Acc = int;
+  static constexpr int kMinBlocks = 3;
+  int p;
+  float invp;
+  explicit Narrow(int p_) : p(p_), invp(1.0f / static_cast<float>(p_)) {}
+  __device__ __forceinline__ Acc prod(int c, T v) const {
+    return c * static_cast<int>(v);
+  }
+  __device__ __forceinline__ int red(Acc x) const {
+    return spasm::reduce31(x, p, invp);
+  }
+};
+
+// int32 storage: int64 partial sums, FpWide.
+struct Wide {
+  using T = int32_t;
+  using Acc = long long;
+  static constexpr int kMinBlocks = 2;
+  spasm::FpWide f;
+  explicit Wide(long long p_) : f(p_) {}
+  __device__ __forceinline__ Acc prod(int c, T v) const {
+    return static_cast<long long>(c) * v;
+  }
+  __device__ __forceinline__ int red(Acc x) const { return f.red(x); }
+};
+
+template <class T>
+__device__ __forceinline__ int4 load16(const T* p) {
   return *reinterpret_cast<const int4*>(p);
 }
 
@@ -116,15 +155,20 @@ __device__ __forceinline__ Job next_job(const Sched& sc, int g, int r, int b1,
   return j;
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
-subst_waves(int16_t* R, int M, Sched sc, int nred, int p) {
-  const float invp = 1.0f / static_cast<float>(p);
+template <class Ar>
+__global__ void __launch_bounds__(kThreads, Ar::kMinBlocks)
+subst_waves(typename Ar::T* R, int M, Sched sc, int nred, const Ar ar) {
+  using T = typename Ar::T;
+  using Acc = typename Ar::Acc;
+  constexpr int kVec = 16 / sizeof(T);      // columns per lane (one load)
+  constexpr int kLanes = kCols / kVec;      // lanes per row slot
+  constexpr int kSlots = kThreads / kLanes; // row slots per block
   const int slot = threadIdx.x / kLanes;
   const int c = blockIdx.x * kCols + (threadIdx.x % kLanes) * kVec;
   Job cur = next_job(sc, 0, sc.bounds[0] + slot, sc.bounds[1], slot);
   for (int g = 0; g < sc.ngroups; ++g) {
     while (cur.g == g) {                            // slot-uniform
-      int16_t* dst = R + static_cast<int64_t>(cur.row) * M + c;
+      T* dst = R + static_cast<int64_t>(cur.row) * M + c;
       const int4 raw = load16(dst);
       int cz[kU];
       int4 gv[kU];
@@ -138,9 +182,9 @@ subst_waves(int16_t* R, int M, Sched sc, int nred, int p) {
       }
       // the next row's indices while this row's loads are in flight
       const Job nx = next_job(sc, cur.g, cur.r + kSlots, cur.b1, slot);
-      const int16_t* rv = reinterpret_cast<const int16_t*>(&raw);
-      // |acc| <= p/2 + nred (p/2)^2 < 2^31 between reductions
-      int acc[kVec];
+      const T* rv = reinterpret_cast<const T*>(&raw);
+      // balanced + nred products between reductions (see the header)
+      Acc acc[kVec];
 #pragma unroll
       for (int i = 0; i < kVec; ++i) acc[i] = rv[i];
       int cnt = 0;
@@ -148,14 +192,12 @@ subst_waves(int16_t* R, int M, Sched sc, int nred, int p) {
 #pragma unroll
         for (int u = 0; u < kU; ++u) {
           if (s + u >= cur.s1) break;
-          const int16_t* gs = reinterpret_cast<const int16_t*>(&gv[u]);
+          const T* gs = reinterpret_cast<const T*>(&gv[u]);
 #pragma unroll
-          for (int i = 0; i < kVec; ++i)
-            acc[i] -= cz[u] * static_cast<int>(gs[i]);
+          for (int i = 0; i < kVec; ++i) acc[i] -= ar.prod(cz[u], gs[i]);
           if (++cnt == nred) {
 #pragma unroll
-            for (int i = 0; i < kVec; ++i)
-              acc[i] = spasm::reduce31(acc[i], p, invp);
+            for (int i = 0; i < kVec; ++i) acc[i] = ar.red(acc[i]);
             cnt = 0;
           }
         }
@@ -171,10 +213,9 @@ subst_waves(int16_t* R, int M, Sched sc, int nred, int p) {
         }
       }
       int4 out;
-      int16_t* ov = reinterpret_cast<int16_t*>(&out);
+      T* ov = reinterpret_cast<T*>(&out);
 #pragma unroll
-      for (int i = 0; i < kVec; ++i)
-        ov[i] = static_cast<int16_t>(spasm::reduce31(acc[i], p, invp));
+      for (int i = 0; i < kVec; ++i) ov[i] = static_cast<T>(ar.red(acc[i]));
       *reinterpret_cast<int4*>(dst) = out;
       cur = nx;
     }
@@ -182,14 +223,9 @@ subst_waves(int16_t* R, int M, Sched sc, int nred, int p) {
   }
 }
 
-}  // namespace
-
-// R (npad, M) int16, M % 64 == 0, rows 16-byte aligned; sched the int32
-// schedule array above, on the card (n rows, nrefs references, ngroups
-// >= 1 waves).  One launch.
-extern "C" int spasm_subst_waves(void* R, int M, void* sched, int n,
-                                 int nrefs, int ngroups, int nred, int p,
-                                 void* stream) {
+template <class Ar>
+int launch(void* R, int M, void* sched, int n, int nrefs, int ngroups,
+           int nred, const Ar& ar, void* stream) {
   const int32_t* a = static_cast<const int32_t*>(sched);
   Sched sc;
   sc.bounds = a;
@@ -198,9 +234,28 @@ extern "C" int spasm_subst_waves(void* R, int M, void* sched, int n,
   sc.refs = sc.ref_ptr + n + 1;
   sc.coef = sc.refs + nrefs;
   sc.ngroups = ngroups;
-  subst_waves<<<M / kCols, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int16_t*>(R), M, sc, nred, p);
+  subst_waves<Ar><<<M / kCols, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<typename Ar::T*>(R), M, sc, nred, ar);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// R (npad, M) int16 (p <= 65535), M % 64 == 0, rows 16-byte aligned;
+// sched the int32 schedule array above, on the card (n rows, nrefs
+// references, ngroups >= 1 waves).  One launch.
+extern "C" int spasm_subst_waves(void* R, int M, void* sched, int n,
+                                 int nrefs, int ngroups, int nred, int p,
+                                 void* stream) {
+  return launch(R, M, sched, n, nrefs, ngroups, nred, Narrow(p), stream);
+}
+
+// The same on int32 R (65535 < p <= 2^32 - 5).  One launch.
+extern "C" int spasm_subst_waves_wide(void* R, int M, void* sched, int n,
+                                      int nrefs, int ngroups, int nred,
+                                      long long p, void* stream) {
+  return launch(R, M, sched, n, nrefs, ngroups, nred, Wide(p), stream);
 }
 
 // Columns per block: M must be a multiple of it.

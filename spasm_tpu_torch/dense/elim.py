@@ -13,17 +13,21 @@ block; the trailing matrix gets one composed update per block.
 
 The latency-bound part of a panel step (discovery, W, its inverse or
 forward factor, the unit-upper inverse) is kernel B4
-(`dense/panel.py` + `csrc/panel.cu`) for a CUDA tensor; a CPU tensor
-takes its plain version, built from the helpers below.  Everything else
-is torch ops on `matmul_digits` (int8 `torch._int_mm`).
+(`dense/panel.py` + `csrc/panel.cu`) for a CUDA tensor in the d == 2
+tier; a CPU tensor takes its plain version, `panel_steps` below.  Above
+the d == 2 tier, `panel_steps` is the route on every device, as it is in
+the JAX package (`use_pallas=False`: B4 holds int32 updates only).
+Everything else is torch ops on `matmul_digits` (int8 `torch._int_mm`).
 
 The port updates S in place where the JAX package rebuilt arrays, and
 restricts each product to the columns it changes (the JAX package
-computed full widths and masked them); the results are the same.  Only
-the d == 2 tier (p <= 65279) is in scope, where every step stays in
-int32.  Rows pad to a quantum of 128 on every device (the JAX package
-pads to 32 off the TPU); zero rows are inert, so outputs sliced to the
-input's rows are the same.
+computed full widths and masked them); the results are the same.  In
+the d == 2 tier (p <= 65279) every step stays in int32; above it the
+elementwise helpers form their products in int64 (`_small`, the one
+place the tier is chosen) and store balanced int32.  Rows pad to a
+quantum of 128 on every device (the JAX package pads to 32 off the
+TPU); zero rows are inert, so outputs sliced to the input's rows are the
+same.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .modp import (_reduce31, check_prime, dnorm64, matmul_digits, modinv)
+from .modp import (_reduce31, device_field, dnorm64, matmul_digits, modinv,
+                   mulmod)
 from ..field import Field
 from ..profiling import annotate, phase
 
@@ -41,25 +46,42 @@ _NBLK = 512       # column-block width of the composed trailing update
 _ROWS_QUANTUM = 128
 
 
+def _small(p: int) -> bool:
+    """The d == 2 tier: every division-free update fits int32."""
+    return device_field(p).ndigits == 2
+
+
 def _mulsub(v, P, g, piv, p: int) -> torch.Tensor:
-    """Balanced v*P - g*piv (outer-product form), exact in int32:
-    |v*P - g*piv| <= 2*(p/2)^2 < 2^31.  The explicit casts matter: int16
+    """Balanced v*P - g*piv (outer-product form), int32 out.  d == 2:
+    exact in int32, |v*P - g*piv| <= 2*(p/2)^2 < 2^31; above, in int64
+    (< 2^63 for p <= 2^32 - 5).  The explicit casts matter: int16
     operands would multiply in int16 and overflow."""
+    if not _small(p):
+        x = (v.to(torch.int64) * P.to(torch.int64)
+             - g.to(torch.int64) * piv.to(torch.int64))
+        return dnorm64(x, p).to(torch.int32)
     x = (v.to(torch.int32) * P.to(torch.int32)
          - g.to(torch.int32) * piv.to(torch.int32))
     return _reduce31(x, p)
 
 
 def _submod(A, B, p: int) -> torch.Tensor:
-    """Balanced A - B of balanced operands (one conditional correction)."""
-    x = A.to(torch.int32) - B.to(torch.int32)
+    """Balanced A - B of balanced operands (one conditional correction;
+    the difference in int64 above the d == 2 tier, where it may pass
+    2^31)."""
+    wide = not _small(p)
+    dt = torch.int64 if wide else torch.int32
+    x = A.to(dt) - B.to(dt)
     half = (p - 1) >> 1
     x = torch.where(x > half, x - p, x)
-    return torch.where(x < -half, x + p, x)
+    x = torch.where(x < -half, x + p, x)
+    return x.to(torch.int32) if wide else x
 
 
 def _scale_rows(c, M, p: int) -> torch.Tensor:
-    """Balanced diag(c) @ M."""
+    """Balanced diag(c) @ M, int32 out."""
+    if not _small(p):
+        return mulmod(c[:, None], M, p).to(torch.int32)
     return _reduce31(c[:, None].to(torch.int32) * M.to(torch.int32), p)
 
 
@@ -149,15 +171,44 @@ def _forward_factor(W: torch.Tensor, p: int):
 
 def _unit_upper_inverse_small(V: torch.Tensor, p: int) -> torch.Tensor:
     """Inverse of a unit upper-triangular (nb, nb) matrix mod p, row by
-    row from the bottom (each row sum <= nb * p/2 stays in int32)."""
+    row from the bottom (each row sum <= nb * p/2 stays in int32 in the
+    d == 2 tier; above it the products and sums are int64)."""
     nb = V.shape[0]
     Vinv = torch.zeros_like(V, dtype=torch.int32)
+    small = _small(p)
     for i in range(nb - 1, -1, -1):
-        terms = _reduce31(V[i, :, None].to(torch.int32) * Vinv, p)
-        row = _reduce31(-terms.sum(dim=0, dtype=torch.int32), p)
-        row[i] += 1
-        Vinv[i] = _reduce31(row, p)
+        if small:
+            terms = _reduce31(V[i, :, None].to(torch.int32) * Vinv, p)
+            row = _reduce31(-terms.sum(dim=0, dtype=torch.int32), p)
+            row[i] += 1
+            Vinv[i] = _reduce31(row, p)
+        else:
+            terms = mulmod(V[i, :, None], Vinv, p)
+            row = dnorm64(-terms.sum(dim=0), p)
+            row[i] += 1
+            Vinv[i] = dnorm64(row, p).to(torch.int32)
     return Vinv
+
+
+def panel_steps(P0: torch.Tensor, is_piv: torch.Tensor, p: int, nb: int,
+                rref: bool):
+    """One panel's pivots and pivot-minor factors in torch ops: the JAX
+    package's `use_pallas=False` route (`_discovery_sweep`, W assembly,
+    `_jordan_inverse` / `_forward_factor` + `_unit_upper_inverse_small`),
+    with the outputs of kernel B4 (dense/panel.py, which takes it as its
+    plain version): (lrows, lhas, is_piv', Z) in RREF mode, (lrows,
+    lhas, is_piv', Z, Vinv) in LU mode.  Above the d == 2 tier this is
+    the route on every device."""
+    piv = _discovery_sweep(P0, is_piv, p)
+    lsafe = torch.where(piv.lhas, piv.lrows, 0).to(torch.int64)
+    both = piv.lhas[:, None] & piv.lhas[None, :]
+    W = torch.where(both, P0[lsafe], torch.eye(nb, dtype=torch.int32,
+                                               device=P0.device))
+    if rref:
+        return piv.lrows, piv.lhas, piv.is_piv, _jordan_inverse(W, p)
+    Zlu, Vup = _forward_factor(W, p)
+    return (piv.lrows, piv.lhas, piv.is_piv, Zlu,
+            _unit_upper_inverse_small(Vup, p))
 
 
 def _panel_step(S: torch.Tensor, j0: int, is_piv: torch.Tensor,
@@ -197,7 +248,8 @@ def _eliminate(S: torch.Tensor, p: int, rref: bool, nb: int = _NB,
     L (n, m) int32 in LU mode, else None).  In LU mode, L's slot column t
     of panel q holds the multiplier column of local step t."""
     from .panel import panel_pivots
-    check_prime(p)
+    # B4 holds the d == 2 tier; above it the panels take the torch route
+    pivots = panel_pivots if _small(p) else panel_steps
     n, m = S.shape
     dev = S.device
     if nblk <= 0:
@@ -221,7 +273,7 @@ def _eliminate(S: torch.Tensor, p: int, rref: bool, nb: int = _NB,
         lhas = torch.zeros(nblk, dtype=torch.bool, device=dev)
         for jl in range(0, nblk, nb):
             lr, lh, is_piv = _panel_step(B, jl, is_piv, Lb, p, nb, rref,
-                                         panel_pivots)
+                                         pivots)
             lrows[jl:jl + nb] = lr
             lhas[jl:jl + nb] = lh
         pivrow_of_col[j0:j1] = torch.where(lhas, lrows, -1)

@@ -7,9 +7,14 @@ are split into base-256 digits in [-128, 127]; the digit products are
 summed per anti-diagonal in int32 and recombined with the residues of
 256^s mod p.
 
-Scope: the d == 2 digit tier (p <= 65279, which holds the tools' default
-modulus 42013), where every step stays in int32.  The d == 3 / 4 tiers
-raise NotImplementedError (ROADMAP: the d = 3/4 prime tiers).
+Every odd prime p <= 2^32 - 5, in three digit tiers (`device_field(p)
+.ndigits`, the one place the tier is chosen): d == 2 (p <= 65279, which
+holds the tools' default modulus 42013), where every step stays in
+int32; d == 3 (p <= 16711421), where each anti-diagonal reduces in
+int32 and is weighted in int64 (products of balanced values < 2^47);
+d == 4 (p <= 2^32 - 5), where the diagonals are weighted in int64
+directly (one product < 2^62, reduced at once).  Balanced values fit
+int32 in every tier; only products and sums widen.
 
 The prime is a Python int throughout; reductions use `torch.remainder`,
 which gives the unique balanced residue like the JAX package's
@@ -68,12 +73,20 @@ def device_field(p: int) -> DeviceField:
     return DeviceField(p, d, w)
 
 
-def check_prime(p: int) -> None:
-    """Raise NotImplementedError outside the ported d == 2 tier."""
+def check_small(p: int, what: str) -> None:
+    """Raise NotImplementedError for p above the d == 2 tier: `what` (a
+    kernel whose division-free updates need 2 (p/2)^2 < 2^31) has no
+    wide-field variant yet (ROADMAP: B8)."""
     if device_field(p).ndigits != 2:
         raise NotImplementedError(
-            f"p = {p} > {SMALL_MAX_PRIME}: the d = 3/4 digit tiers are not "
-            "ported yet (ROADMAP: the d = 3/4 prime tiers)")
+            f"p = {p} > {SMALL_MAX_PRIME}: {what} takes the d = 2 tier "
+            "only (ROADMAP: B8, the wide-field variants of B2/B3/B4)")
+
+
+def storage_dtype(p: int) -> torch.dtype:
+    """Storage of balanced rows (R, the finisher's basis): int16 holds
+    every balanced value while p <= 65535, int32 above."""
+    return torch.int16 if p <= 65535 else torch.int32
 
 
 def dnorm64(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -107,11 +120,17 @@ def _reduce31(x: torch.Tensor, p: int) -> torch.Tensor:
     return torch.where(r > (p - 1) >> 1, r - p, r)
 
 
-def _digits(x: torch.Tensor, d: int) -> List[torch.Tensor]:
+def _digits(x: torch.Tensor, d: int, p: int = 0) -> List[torch.Tensor]:
     """Balanced int32 -> d int8 digit tensors, base 256, each in
-    [-128, 127], with x = sum_s digits[s] * 256^s (d == 2: |x| <= 32639).
-    """
-    v = x.to(torch.int32)
+    [-128, 127], with x = sum_s digits[s] * 256^s (mod p).  d <= 3 works
+    in int32 (|x| <= 8355711); d == 4 in int64, where values above the
+    positive digit reach 2139062143 (below (2^32 - 5) // 2) are mapped to
+    v - p, which the wider negative reach holds."""
+    if d >= 4:
+        v = x.to(torch.int64)
+        v = torch.where(v > _digit_reach(4), v - p, v)
+    else:
+        v = x.to(torch.int32)
     out = []
     for _ in range(d):
         lo = ((v + 128) & (_DIGIT_BASE - 1)) - 128
@@ -161,12 +180,25 @@ def matmul_digits_i8B(A: torch.Tensor, B8: torch.Tensor, p: int
     """Exact (A @ B8) mod p where B8 is int8 (|values| <= 127, a single
     base-256 digit): only A is digit-decomposed, d products instead of
     d * d."""
-    check_prime(p)
+    F = device_field(p)
+    d = F.ndigits
     n, k = A.shape
     m = B8.shape[1]
-    w1 = int(device_field(p).weights[1])
+    kc = _k_step(k, m, d)
+    if d > 2:
+        # each digit product (<= kc * 16256 < 2^31) reduces in int64 (p
+        # may exceed int32) and is weighted there: |b * w| < 2^62
+        acc = torch.zeros((n, m), dtype=torch.int64, device=A.device)
+        for c, lo in enumerate(range(0, k, kc)):
+            Bc = B8[lo:lo + kc]
+            for s, a in enumerate(_digits(A[:, lo:lo + kc], d, p)):
+                b = dnorm64(_mm8(a, Bc), p)
+                acc += dnorm64(b * int(F.weights[s]), p)
+            if (c + 1) % 64 == 0:
+                acc = dnorm64(acc, p)
+        return dnorm64(acc, p).to(torch.int32)
+    w1 = int(F.weights[1])
     acc = torch.zeros((n, m), dtype=torch.int32, device=A.device)
-    kc = _k_step(k, m, 2)
     for lo in range(0, k, kc):
         hi = min(k, lo + kc)
         a0, a1 = _digits(A[:, lo:hi], 2)
@@ -183,10 +215,12 @@ def matmul_digits(A: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
     variant runs."""
     if B.dtype == torch.int8:
         return matmul_digits_i8B(A, B, p)
-    check_prime(p)
+    F = device_field(p)
+    if F.ndigits > 2:
+        return _matmul_wide(A, B, p, F)
     n, k = A.shape
     m = B.shape[1]
-    w = device_field(p).weights
+    w = F.weights
     w1, w2 = int(w[1]), int(w[2])
     acc = torch.zeros((n, m), dtype=torch.int32, device=A.device)
     kc = _k_step(k, m, 2)
@@ -205,3 +239,31 @@ def matmul_digits(A: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
         d0 += w2 * d2
         acc = _reduce31(acc + _reduce31(d0, p), p)
     return acc
+
+
+def _matmul_wide(A: torch.Tensor, B: torch.Tensor, p: int,
+                 F: DeviceField) -> torch.Tensor:
+    """matmul_digits for d == 3 / 4: the d * d digit products summed per
+    anti-diagonal in int32 (|sum| <= min(d, s + 1) * kc * 16256 < 2^31 at
+    _k_chunk(d)), one diagonal at a time; d == 3 reduces each diagonal in
+    int32 and weights it in int64 (< 2^47), d == 4 weights it in int64
+    directly (< 2^62); the int64 accumulator of balanced terms is reduced
+    every 64 chunks."""
+    d = F.ndigits
+    n, k = A.shape
+    m = B.shape[1]
+    acc = torch.zeros((n, m), dtype=torch.int64, device=A.device)
+    kc = _k_step(k, m, d)
+    for c, lo in enumerate(range(0, k, kc)):
+        Ad = _digits(A[:, lo:lo + kc], d, p)
+        Bd = _digits(B[lo:lo + kc], d, p)
+        for s in range(2 * d - 1):
+            part = None
+            for d1 in range(max(0, s - d + 1), min(d, s + 1)):
+                P = _mm8(Ad[d1], Bd[s - d1])
+                part = P if part is None else part.add_(P)
+            part = _reduce31(part, p) if d == 3 else part
+            acc += dnorm64(part.to(torch.int64) * int(F.weights[s]), p)
+        if (c + 1) % 64 == 0:
+            acc = dnorm64(acc, p)
+    return dnorm64(acc, p).to(torch.int32)

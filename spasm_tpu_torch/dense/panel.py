@@ -15,21 +15,22 @@ is_piv' (n,) bool and W the panel's pivot minor (identity on empty
 slots).  A CUDA tensor launches the kernel (csrc/panel.cu, one launch:
 the cluster variant up to CLUSTER_ROWS rows, the cooperative one above,
 chosen by n alone; a launch that fails raises); a CPU tensor takes
-`_panel_plain`, the XLA path of
-the JAX package (`_discovery_sweep`, W assembly, `_jordan_inverse` /
-`_forward_factor` + `_unit_upper_inverse_small`), which the JAX tests
-hold against the Pallas kernel.  Every output is unique (first-available
--row pivots; the inverse and LU factors of W), so the two agree bit for
-bit.  p <= 65279: the division-free updates need 2 (p/2)^2 < 2^31.
+`_panel_plain`, the XLA path of the JAX package (`elim.panel_steps`:
+`_discovery_sweep`, W assembly, `_jordan_inverse` / `_forward_factor` +
+`_unit_upper_inverse_small`), which the JAX tests hold against the
+Pallas kernel.  Every output is unique (first-available-row pivots; the
+inverse and LU factors of W), so the two agree bit for bit.  The d == 2
+tier only (p <= 65279: the division-free updates need 2 (p/2)^2 <
+2^31); a larger prime raises before any launch, and `elim._eliminate`
+never hands one here.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _cuda
-from .elim import (_discovery_sweep, _forward_factor, _jordan_inverse,
-                   _unit_upper_inverse_small)
-from .modp import check_prime
+from .elim import panel_steps as _panel_plain
+from .modp import check_small
 
 NB = 64          # the kernel's panel width (csrc/panel.cu kNB)
 CLUSTER_ROWS = 16 * 1536    # the cluster variant's most rows (kCluster *
@@ -37,7 +38,7 @@ CLUSTER_ROWS = 16 * 1536    # the cluster variant's most rows (kCluster *
 
 
 def _check(P0: torch.Tensor, is_piv: torch.Tensor, p: int, nb: int):
-    check_prime(p)
+    check_small(p, "kernel B4")
     if nb != NB:
         raise ValueError(f"the panel kernel takes nb = {NB}, got {nb}")
     if (P0.dtype != torch.int32 or P0.dim() != 2 or P0.shape[1] != nb
@@ -119,18 +120,3 @@ def _launch(P0, is_piv, p: int, rref: bool, stamps, variant: str):
     if rref:
         return lrows, lhas, piv_out, Z
     return lrows, lhas, piv_out, Z, Vinv
-
-
-def _panel_plain(P0: torch.Tensor, is_piv: torch.Tensor, p: int, nb: int,
-                 rref: bool):
-    """Plain version of B4 on P0's device (the JAX package's XLA path)."""
-    piv = _discovery_sweep(P0, is_piv, p)
-    lsafe = torch.where(piv.lhas, piv.lrows, 0).to(torch.int64)
-    both = piv.lhas[:, None] & piv.lhas[None, :]
-    W = torch.where(both, P0[lsafe], torch.eye(nb, dtype=torch.int32,
-                                               device=P0.device))
-    if rref:
-        return piv.lrows, piv.lhas, piv.is_piv, _jordan_inverse(W, p)
-    Zlu, Vup = _forward_factor(W, p)
-    return (piv.lrows, piv.lhas, piv.is_piv, Zlu,
-            _unit_upper_inverse_small(Vup, p))

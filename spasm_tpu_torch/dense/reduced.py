@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from .elim import _size_bucket, _submod
-from .modp import _reduce31, check_prime, device_field, matmul_digits
+from .modp import (_reduce31, device_field, dnorm64, matmul_digits,
+                   storage_dtype)
 from .subst import nred_for, subst_waves
 
 
@@ -39,10 +40,23 @@ def _ref_combine(V: torch.Tensor, R: torch.Tensor, refs: torch.Tensor,
 
     V (S, K) balanced int32; refs (S, K) R row ids (dead slots point at a
     zero row).  The JAX version materialized the (S, K, M) gather; here
-    each slot's rows are gathered in turn.  Products accumulate in int32,
-    nred_for(p) of them between reductions; small_acc (caller guarantees
-    K * (p//2)^2 < 2^31) takes all K in one accumulation."""
+    each slot's rows are gathered in turn.  In the d == 2 tier products
+    accumulate in int32, nred_for(p) of them between reductions;
+    small_acc (caller guarantees K * (p//2)^2 < 2^31) takes all K in one
+    accumulation.  Above it they accumulate in int64: d == 3 sums up to
+    2^15 products (< 2^47 each) between reductions, d == 4 reduces each
+    product (< 2^62) before the sum."""
     S, K = V.shape
+    d = device_field(p).ndigits
+    if d > 2:
+        out = torch.zeros((S, R.shape[1]), dtype=torch.int64,
+                          device=R.device)
+        for k in range(K):
+            t = V[:, k:k + 1].to(torch.int64) * R[refs[:, k]].to(torch.int64)
+            out += t if d == 3 else dnorm64(t, p)
+            if d == 3 and (k + 1) % (1 << 15) == 0:
+                out = dnorm64(out, p)
+        return dnorm64(out, p).to(torch.int32)
     step = K if small_acc else nred_for(p)
     out = torch.zeros((S, R.shape[1]), dtype=torch.int32, device=R.device)
     for k0 in range(0, K, step):
@@ -62,7 +76,6 @@ class ReducedBasis:
 
     def __init__(self, m: int, prime: int, qfree: np.ndarray, npiv: int,
                  device="cuda"):
-        check_prime(prime)
         self.m = m
         self.prime = prime
         self.device = torch.device(device)
@@ -73,7 +86,7 @@ class ReducedBasis:
         self.M = max(-(-(self.nq + 1) // 2048) * 2048, 2048)
         self.npad = _size_bucket(npiv + 1, 64)
         self.npiv = npiv
-        self.dtype = torch.int16 if prime <= 65535 else torch.int32
+        self.dtype = storage_dtype(prime)
         # global column -> compact slot / R row (index m = dead)
         colmap = np.full(m + 1, self.M - 1, np.int64)
         colmap[qfree] = np.arange(self.nq)
@@ -165,16 +178,23 @@ class ReducedBasis:
         referenced R rows."""
         p = self.prime
         M = self.M
+        small = self.F.ndigits == 2
         C = self.indices[eidx]                       # (Bc, K) columns
-        v = _reduce31(self.data[eidx] * coeff, p)    # |raw*coeff| < 2^30
+        if small:
+            v = _reduce31(self.data[eidx] * coeff, p)   # |raw*coeff| < 2^30
+        else:
+            v = dnorm64(self.data[eidx].to(torch.int64)
+                        * coeff.to(torch.int64), p).to(torch.int32)
         fc = self.colmap[C]
         pr = self.pivmap[C]
-        # colliding entries sum: K balanced terms stay in int32 (the
-        # finisher caps its combination weight for this)
-        X = torch.zeros((eidx.shape[0], M), dtype=torch.int32,
+        # colliding entries sum: K balanced terms stay in int32 in the
+        # d == 2 tier (the finisher caps its combination weight for
+        # this), in int64 above it
+        X = torch.zeros((eidx.shape[0], M),
+                        dtype=torch.int32 if small else torch.int64,
                         device=self.device)
-        X.scatter_add_(1, fc, v)
-        Xb = _reduce31(X, p)
+        X.scatter_add_(1, fc, v.to(X.dtype))
+        Xb = _reduce31(X, p) if small else dnorm64(X, p).to(torch.int32)
         K = eidx.shape[1]
         delta = _ref_combine(v, self.R, pr, p, self._small_acc(K))
         out = _submod(Xb, delta, p)

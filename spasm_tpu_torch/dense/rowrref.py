@@ -27,6 +27,13 @@ echelon basis is valid downstream (qinv carries the columns); under
 the leftmost rule the RREF is unique, so B2's output is bit-equal to
 the JAX `_rref_rows(use_pallas=False)`.
 
+Above the d == 2 tier (the kernels hold int32 updates only, as the JAX
+package's Pallas sweeps do) every device takes `step_sweep`: the JAX
+package's XLA step loop (leftmost rule, int64 products in `_mulsub`),
+run on 64-row sub-panels like the kernels, with no host round trip per
+row.  `CompactBasis` stores int32 rows there, and its products go
+through the wide `matmul_digits`.
+
 The last column of X must be dead (zero): gathers park unused indices
 there.
 """
@@ -39,7 +46,8 @@ import torch
 
 from .. import _cuda
 from .elim import _mulsub, _scale_rows, _submod
-from .modp import check_prime, dnorm64, matmul_digits, modinv
+from .modp import (check_small, device_field, dnorm64, matmul_digits,
+                   modinv, storage_dtype)
 
 _SB = 64            # rows per sweep (sub-panel)
 _TW = 2048          # width quantum: B2 at M == _TW, B3 at M >= 2 * _TW
@@ -50,7 +58,7 @@ _CHUNK = 4096       # basis rows per CompactBasis product (memory bound)
 
 
 def _check_sweep_input(P: torch.Tensor, p: int, nb_max: int):
-    check_prime(p)
+    check_small(p, "kernels B2/B3")
     if P.dtype != torch.int32 or P.dim() != 2 or not P.is_contiguous():
         raise ValueError("P must be a contiguous 2-D int32 tensor")
     if not 0 < P.shape[0] <= nb_max:
@@ -163,6 +171,31 @@ def _row_sweep_plain(P: torch.Tensor, p: int) -> torch.Tensor:
     return pivcol
 
 
+def step_sweep(P: torch.Tensor, p: int) -> torch.Tensor:
+    """The leftmost-rule Jordan sweep of P (nb, M) int32 in place, in
+    torch ops on P's device (the JAX package's XLA step loop,
+    rowrref.py:430-446): per row k, its leftmost nonzero j, then P <-
+    v*P - g (x) P[k] with v = P[k, j], g = P[:, j], g[k] = 0.  No host
+    sync: a zero row takes v = 1, g = 0, an identity update.  The d >= 3
+    route of `rref_rows_device`; returns pivcol (nb,) int32."""
+    nb, M = P.shape
+    dev = P.device
+    iota = torch.arange(nb, device=dev)
+    pivcol = torch.full((nb,), -1, dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    for k in range(nb):
+        u = P[k].clone()
+        nz = u != 0
+        has = nz.any()
+        j = torch.argmax(nz.to(torch.int32)).view(1)
+        v = torch.where(has, u.index_select(0, j)[0], one)
+        g = torch.where((iota != k) & has,
+                        P.index_select(1, j)[:, 0], 0)
+        P.copy_(_mulsub(v, P, g[:, None], u[None, :], p))
+        pivcol[k] = torch.where(has, j[0].to(torch.int32), -one)
+    return pivcol
+
+
 def _mm_exact(A: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
     """Balanced A @ B of balanced int32 operands with at most 64 terms:
     each product is below 2^30 and each sum below 2^36, so the float64
@@ -260,7 +293,8 @@ def rref_rows_device(Xd: torch.Tensor, p: int, nb: int = 64):
     """Xd: (B, M) device tensor, last column dead, B % 64 == 0,
     M % 2048 == 0; reduced IN PLACE.  Returns (Xd, pivcol) with pivcol
     (B,) int32 on the device (no host round trip yet).  Sweeps with B2 at
-    M == 2048 and B3 at M >= 4096."""
+    M == 2048 and B3 at M >= 4096 in the d == 2 tier, with `step_sweep`
+    above it."""
     B, M = Xd.shape
     if B % _SB or M % _TW:
         raise ValueError(f"rref_rows_device needs B % {_SB} == 0 and "
@@ -269,7 +303,10 @@ def rref_rows_device(Xd: torch.Tensor, p: int, nb: int = 64):
     while B % nb:
         nb //= 2
     nb -= nb % _SB
-    sweep = row_sweep if M == _TW else row_sweep_tiles
+    if device_field(p).ndigits > 2:
+        sweep = step_sweep
+    else:
+        sweep = row_sweep if M == _TW else row_sweep_tiles
     return _rref_rows(Xd, p, nb, sweep)
 
 
@@ -279,13 +316,14 @@ class CompactBasis:
     One preallocated (cap, M) buffer (pad rows zero, pivots parked at the
     dead column M-1).  Its storage type comes from the prime, as
     ReducedBasis's does (int16 holds every balanced value for
-    p <= 65535)."""
+    p <= 65535, int32 above; the JAX package's default int16, ROADMAP
+    C1, is not copied)."""
 
     def __init__(self, M: int, p: int, cap: int, device="cuda"):
         self.M = M
         self.p = p
         self.device = torch.device(device)
-        self.dtype = torch.int16 if p <= 65535 else torch.int32
+        self.dtype = storage_dtype(p)
         self.cap = max(cap, 1)
         self.Rbuf = torch.zeros((self.cap, M), dtype=self.dtype,
                                 device=self.device)

@@ -11,8 +11,11 @@ reference each other and only reference rows of earlier waves, so each
 wave is one data-parallel step.  The CUDA kernel (csrc/subst.cu) is
 one launch per call: its blocks own column chunks and each walks every
 wave, since a column of R[k] depends only on the same column of the rows
-k references.  The plain version runs the wave loop as torch ops
-(gather, int64 sum, mod).
+k references.  R's storage follows the prime (as `ReducedBasis` stores
+it): int16 for p <= 65535, where the kernel sums in int32, and int32
+above, where a second instantiation of the same wave walk forms its
+products in 64 bits (counted apart, as "B1 wide").  The plain version
+runs the wave loop as torch ops (gather, int64 sum, mod).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
-from .modp import check_prime, dnorm64
+from .modp import dnorm64, storage_dtype
 
 _KMAX = 16
 SUBST_COLS = 64              # kernel B1's columns per block (csrc kCols)
@@ -32,18 +35,27 @@ def nred_for(p: int) -> int:
     return max(1, min(_KMAX, ((1 << 31) - p) // max((p // 2) ** 2, 1)))
 
 
+def nred_wide(p: int) -> int:
+    """Products per int64 partial sum of the int32-storage kernel:
+    nred * (p//2)^2 <= 2^63 - 2p (16 at d = 3, 2 at p = 2^32 - 5)."""
+    return max(1, min(_KMAX, ((1 << 63) - 2 * p) // max((p // 2) ** 2, 1)))
+
+
 def subst_waves(R: torch.Tensor, rows: np.ndarray, ref_ptr: np.ndarray,
                 refs: np.ndarray, coef: np.ndarray, bounds: np.ndarray,
                 p: int) -> None:
-    """Run the substitution on R (npad, M) int16 IN PLACE.
+    """Run the substitution on R (npad, M) IN PLACE, R of
+    `storage_dtype(p)`.
 
     rows (n,) R row ids in processing order; ref_ptr (n + 1,) offsets
     into refs (R row ids) / coef (balanced ints); bounds (ngroups + 1,)
-    wave boundaries into rows.  A CUDA tensor launches kernel B1, a CPU
-    tensor takes the plain version."""
-    check_prime(p)
-    if R.dtype != torch.int16 or R.dim() != 2 or not R.is_contiguous():
-        raise ValueError("R must be a contiguous 2-D int16 tensor")
+    wave boundaries into rows.  A CUDA tensor launches kernel B1 (its
+    int16 or int32 instantiation), a CPU tensor takes the plain
+    version."""
+    dtype = storage_dtype(p)
+    if R.dtype != dtype or R.dim() != 2 or not R.is_contiguous():
+        raise ValueError(f"R must be a contiguous 2-D {dtype} tensor for "
+                         f"p = {p}")
     npad, M = R.shape
     bounds = np.ascontiguousarray(bounds, np.int64)
     n = len(rows)
@@ -75,15 +87,24 @@ def subst_waves(R: torch.Tensor, rows: np.ndarray, ref_ptr: np.ndarray,
     L = _cuda.lib()
     if L.spasm_subst_cols() != SUBST_COLS:
         raise RuntimeError("csrc/subst.cu kCols disagrees with SUBST_COLS")
-    err = L.spasm_subst_waves(R.data_ptr(), M, sched_d.data_ptr(), n, nrefs,
-                              ngroups, nred_for(p), p, _cuda.stream_ptr(R))
-    _cuda.check(err, "kernel B1 (spasm_subst_waves)")
-    _cuda.launches["B1"] += 1
-    _cuda.calls["B1"] += 1
+    if dtype == torch.int16:
+        err = L.spasm_subst_waves(R.data_ptr(), M, sched_d.data_ptr(), n,
+                                  nrefs, ngroups, nred_for(p), p,
+                                  _cuda.stream_ptr(R))
+        name = "B1"
+    else:
+        err = L.spasm_subst_waves_wide(R.data_ptr(), M, sched_d.data_ptr(),
+                                       n, nrefs, ngroups, nred_wide(p), p,
+                                       _cuda.stream_ptr(R))
+        name = "B1 wide"
+    _cuda.check(err, f"kernel {name} (spasm_subst_waves)")
+    _cuda.launches[name] += 1
+    _cuda.calls[name] += 1
 
 
 def _subst_waves_plain(R, rows, ref_ptr, refs, coef, bounds, p: int):
-    """The same wave loop in torch: gather, int64 weighted sum, mod."""
+    """The same wave loop in torch: gather, int64 weighted sum, mod.  On
+    int32 storage each product (< 2^62) is reduced before the sum."""
     dev = R.device
     M = R.shape[1]
     rows = np.asarray(rows, np.int64)
@@ -105,6 +126,8 @@ def _subst_waves_plain(R, rows, ref_ptr, refs, coef, bounds, p: int):
                 device=dev)
             acc = R[rr].to(torch.int64)
             contrib = coef_t[s0:s1, None] * R[refs_t[s0:s1]].to(torch.int64)
+            if R.dtype == torch.int32:
+                contrib = dnorm64(contrib, p)
             acc.index_add_(0, seg, contrib, alpha=-1)
             R[rr] = dnorm64(acc, p).to(R.dtype)
             r0 = r1

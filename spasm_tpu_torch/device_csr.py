@@ -16,7 +16,7 @@ import torch
 
 from .csr import CSR
 from .dense.elim import _size_bucket
-from .dense.modp import _reduce31, dnorm64
+from .dense.modp import _reduce31, device_field, dnorm64
 
 
 def _densify(indptr: torch.Tensor, indices: torch.Tensor,
@@ -24,9 +24,9 @@ def _densify(indptr: torch.Tensor, indices: torch.Tensor,
              Bp: int, mp: int, maxlen: int) -> torch.Tensor:
     """Scatter rows[:nrows] into a (Bp, mp) dense int32 block.  Entry
     slots beyond a row's length (and rows past nrows) add 0 into the
-    dead column mp - 1.  Duplicate column entries sum: int32
-    accumulation (maxlen * (p // 2) < 2^31), then one balanced
-    reduction."""
+    dead column mp - 1.  Duplicate column entries sum, then one balanced
+    reduction: in int32 in the d == 2 tier (maxlen * (p // 2) < 2^31),
+    in int64 above it, where two balanced entries may pass 2^31."""
     starts = indptr[rows]                               # (Bp,)
     lens = indptr[rows + 1] - starts
     k = torch.arange(maxlen, device=rows.device)
@@ -35,6 +35,10 @@ def _densify(indptr: torch.Tensor, indices: torch.Tensor,
     idx = torch.where(live, starts[:, None] + k[None, :], 0)
     cols = torch.where(live, indices[idx], mp - 1)
     vals = torch.where(live, data[idx], 0)
+    if device_field(p).ndigits > 2:
+        X = torch.zeros((Bp, mp), dtype=torch.int64, device=rows.device)
+        X.scatter_add_(1, cols, vals.to(torch.int64))
+        return dnorm64(X, p).to(torch.int32)
     X = torch.zeros((Bp, mp), dtype=torch.int32, device=rows.device)
     X.scatter_add_(1, cols, vals)
     return _reduce31(X, p)

@@ -20,8 +20,8 @@ runs on `device` (default "cuda"):
   * `finish_gplu`: the sparse Gilbert-Peierls finisher on the host
     (native C++, or its Python twin), with the same early abort.
 
-Checkpoint files and p > 65279 raise NotImplementedError naming their
-ROADMAP item.
+Every odd prime p <= 2^32 - 5 runs (the digit tiers of dense/modp.py);
+checkpoint files raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ from .triangular import sparse_triangular_solve
 from .dense.block import UEliminator, _unit_upper_inverse_log
 from .dense.elim import (_size_bucket, dense_lu, dense_lu_device, dense_rank,
                          dense_rref, dense_rref_device)
-from .dense.modp import check_prime, matmul_digits
+from .dense.modp import matmul_digits
 
 log = logging.getLogger("spasm_tpu_torch")
 if not log.handlers:
@@ -875,7 +875,9 @@ class _Engine:
         if opts.low_rank_start_weight < 0:
             w = min(w, 8)
         # form_block's scatter accumulates up to w colliding balanced
-        # entries in int32: w * (p//2) < 2^31
+        # entries in int32 in the d == 2 tier: w * (p//2) < 2^31 (int64
+        # above it; the cap stays there too, so the draws are the JAX
+        # package's)
         w_cap = max(1, ((1 << 31) - 1) // max(prime // 2, 1))
         w = min(w, w_cap)
         # deterministic draws bound to the input matrix through the
@@ -1140,7 +1142,6 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
         opts.enable_tall_and_skinny = False
     if opts.checkpoint_file:
         _not_ported("checkpoint_file", "checkpoints and multi-GPU")
-    check_prime(A.prime)
     device = torch.device(device)
 
     n, m = A.n, A.m

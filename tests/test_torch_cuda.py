@@ -19,15 +19,16 @@ from chip_checks import (b2_panel, b3_panel, deficient_panel, panel_block,
 from spasm_tpu_torch import CSR, EchelonizeOptions, _cuda, echelonize, sio
 from spasm_tpu_torch.certificate import factorization_verify
 from spasm_tpu_torch.dense.elim import dense_lu_device, dense_rref_device
-from spasm_tpu_torch.dense.modp import matmul_digits
+from spasm_tpu_torch.dense.modp import matmul_digits, storage_dtype
 from spasm_tpu_torch.dense.panel import (CLUSTER_ROWS, _panel_plain,
                                          panel_pivots, panel_variant)
 from spasm_tpu_torch.dense.rowrref import (CLUSTER_COLS, TILE_W,
                                            _row_sweep_plain,
-                                           _row_sweep_tiles_plain, row_sweep,
+                                           _row_sweep_tiles_plain,
+                                           rref_rows_device, row_sweep,
                                            row_sweep_tiles, row_sweep_variant)
 from spasm_tpu_torch.dense.subst import (_subst_waves_plain, nred_for,
-                                         subst_waves)
+                                         nred_wide, subst_waves)
 from spasm_tpu_torch.device_csr import DeviceCSR
 from spasm_tpu_torch.field import Field
 from spasm_tpu_torch.gen import matching_complex_boundary
@@ -47,12 +48,14 @@ def dev():
 
 
 def _b1_check(dev, waves, M, p, seed):
-    """B1 on the card against its plain version: one launch per call."""
+    """B1 on the card against its plain version, on R's storage for p
+    (int16, or int32 above 65535: the "B1 wide" instantiation): one
+    launch per call, counted under its own name only."""
     rows, ptr, refs, coef, bounds = waves
     n = len(rows)
     rng = np.random.default_rng(seed)
     R0 = torch.from_numpy(
-        rng.integers(-(p // 2), p // 2 + 1, (n + 64, M)).astype(np.int16))
+        rng.integers(-(p // 2), p // 2 + 1, (n + 64, M))).to(storage_dtype(p))
     R0[n:] = 0
     want = R0.to(dev)
     _subst_waves_plain(want, rows, ptr, refs, coef, bounds, p)
@@ -60,8 +63,10 @@ def _b1_check(dev, waves, M, p, seed):
     before = dict(_cuda.launches), dict(_cuda.calls)
     subst_waves(got, rows, ptr, refs, coef, bounds, p)
     torch.cuda.synchronize()
-    assert _cuda.launches["B1"] - before[0]["B1"] == 1
-    assert _cuda.calls["B1"] - before[1]["B1"] == 1
+    key, other = ("B1", "B1 wide") if p <= 65535 else ("B1 wide", "B1")
+    assert _cuda.launches[key] - before[0][key] == 1
+    assert _cuda.calls[key] - before[1][key] == 1
+    assert _cuda.launches[other] == before[0][other]
     assert torch.equal(got, want)
 
 
@@ -83,6 +88,76 @@ def test_b1_one_row_waves_many_refs(dev, M):
     assert np.all(np.diff(waves[4]) == 1)
     assert np.diff(waves[1]).max() > nred_for(p)
     _b1_check(dev, waves, M, p, [M, 12])
+
+
+@pytest.mark.parametrize("p", [65521, 65537, 16711421, 16711427,
+                               4294967291])
+@pytest.mark.parametrize("M", [2048, 20480])
+def test_b1_wide_matches_plain(dev, p, M):
+    """Above the d = 2 tier: int16 storage at 65521 (the existing kernel,
+    nred = 2), the int32 instantiation above 65535 (64-bit products)."""
+    rng = np.random.default_rng([p, M])
+    _b1_check(dev, random_waves(rng, 3000, 40, 12, p), M, p, [p, M, 1])
+
+
+@pytest.mark.parametrize("p", [65537, 4294967291])
+def test_b1_wide_one_row_waves_many_refs(dev, p):
+    """One row per wave, up to 40 references, more than nred_wide (16 at
+    65537; 2 at 2^32 - 5, with products near 2^62): a row reduces several
+    times."""
+    rng = np.random.default_rng([p, 11])
+    waves = random_waves(rng, 300, 300, 40, p)
+    waves[3][::2] = p // 2                  # the largest coefficients
+    assert np.diff(waves[1]).max() > nred_wide(p)
+    _b1_check(dev, waves, 20480, p, [p, 12])
+
+
+@pytest.mark.parametrize("p", [65537, 4294967291])
+def test_wide_routes_card_match_cpu(dev, p):
+    """The d >= 3 routes on the card (the torch step sweep of
+    rref_rows_device; the torch panels of dense_lu_device and of
+    dense_rref_device, two 512-column blocks, int64 products) equal the
+    same calls on the CPU, and launch no kernel."""
+    rng = np.random.default_rng([p, 5])
+    W = rng.integers(-3, 4, (256, 90))
+    G = rng.integers(-(p // 2), p // 2 + 1, (90, 4096))
+    X = (W @ G) % p
+    X = np.where(X > p // 2, X - p, X)
+    X[:, -1] = 0
+    X = torch.from_numpy(X.astype(np.int32))
+    before = dict(_cuda.launches)
+    want = rref_rows_device(X.clone(), p, nb=128)
+    got = rref_rows_device(X.to(dev), p, nb=128)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    want = dense_lu_device(X[:200, :700], p)
+    got = dense_lu_device(X[:200, :700].to(dev), p)
+    for a, b in zip(want[:2], got[:2]):
+        assert np.array_equal(a, b)
+    for a, b in zip(want[2:], got[2:]):
+        assert torch.equal(a, b.cpu())
+    assert want[0].size == 90
+    R, pc = dense_rref_device(X[:200, :1100], p)
+    Rd, pcd = dense_rref_device(X[:200, :1100].to(dev), p)
+    assert np.array_equal(pc, pcd) and pc.size == 90
+    assert torch.equal(Rd.cpu(), R)
+    assert dict(_cuda.launches) == before
+
+
+@pytest.mark.parametrize("p", [65521, 65537, 4294967291])
+def test_d2_kernels_refuse_wide_primes(dev, p):
+    """B2, B3 and B4 take the d = 2 tier only: a larger prime raises
+    before any launch (the wide variants are ROADMAP B8)."""
+    P = torch.zeros((64, 2048), dtype=torch.int32, device=dev)
+    before = dict(_cuda.launches)
+    with pytest.raises(NotImplementedError):
+        row_sweep(P.clone(), p)
+    with pytest.raises(NotImplementedError):
+        row_sweep_tiles(P.clone(), p)
+    with pytest.raises(NotImplementedError):
+        panel_pivots(P[:, :64], torch.zeros(64, dtype=torch.bool,
+                                            device=dev), p, 64, True)
+    assert dict(_cuda.launches) == before
 
 
 @pytest.mark.parametrize("case", ["rank40", "zero", "full", "boundary"])
@@ -240,17 +315,19 @@ def test_complete_pluq_card_matches_cpu(dev, name):
     assert factorization_verify(A, got, 42)
 
 
+@pytest.mark.parametrize("p", [42013, 65537, 16711427, 4294967291])
 @pytest.mark.parametrize("shape", [(4, 8, 3), (17, 40, 9), (4096, 4096, 2048),
                                    (64, 64, 22528), (80, 80, 80),
-                                   (40, 128, 512), (136, 24, 1024)])
-def test_matmul_digits_card_matches_cpu(dev, shape):
+                                   (40, 128, 512), (136, 24, 1024),
+                                   (96, 40000, 64)])
+def test_matmul_digits_card_matches_cpu(dev, shape, p):
+    """All three digit tiers; k = 40000 crosses _k_chunk at d = 3 / 4."""
     n, k, m = shape
-    p = 42013
     rng = np.random.default_rng(list(shape))
     A = torch.from_numpy(rng.integers(-(p // 2), p // 2 + 1, (n, k))
                          .astype(np.int32))
     B = torch.from_numpy(rng.integers(-(p // 2), p // 2 + 1, (k, m))
-                         .astype(np.int16))
+                         ).to(storage_dtype(p))
     want = matmul_digits(A, B, p)
     got = matmul_digits(A.to(dev), B.to(dev), p)
     assert torch.equal(got.cpu(), want)
@@ -273,7 +350,7 @@ def test_echelonize_card_matches_cpu(dev, name):
     assert np.array_equal(Ug.data[:Ug.nnz], Uw.data[:Uw.nnz])
 
 
-@pytest.mark.parametrize("p", [257, 42013, 65269])
+@pytest.mark.parametrize("p", [257, 42013, 65269, 65537, 4294967291])
 def test_densify_card_matches_cpu(dev, p):
     """DeviceCSR.densify on the card against the CPU: duplicate entries,
     the dead column, rows past len(rows)."""

@@ -23,6 +23,8 @@ from tests.conftest import MATRIX
 
 torch.set_num_threads(2)
 P = 42013
+# above the d = 2 tier: both ends of d = 3 (65521 stored int16) and d = 4
+WIDE = [65521, 65537, 16711421, 16711427, 67108859, 4294967291]
 JENG = sys.modules["spasm_tpu.echelonize"]
 TENG = sys.modules["spasm_tpu_torch.echelonize"]
 
@@ -87,7 +89,66 @@ def test_host_entry_points_match_jax(shape):
     assert jelim.dense_rank(X, P) == elim.dense_rank(X, P, device="cpu") == 80
 
 
-def _chunk_rows(rng, m, k):
+def _low_rank_wide(rng, n, m, r, p):
+    """Rank <= r balanced int32 block for any p <= 2^32 - 5: small left
+    factors keep the int64 products exact."""
+    X = rng.integers(-3, 4, (n, r)) @ rng.integers(-(p // 2), p // 2 + 1,
+                                                    (r, m))
+    X[rng.random(n) < 0.1] = 0
+    X %= p
+    return np.where(X > p // 2, X - p, X).astype(np.int32)
+
+
+@pytest.mark.parametrize("rref", [True, False])
+@pytest.mark.parametrize("p", WIDE)
+def test_eliminate_wide_matches_jax(p, rref):
+    """Above the d = 2 tier the panels take the torch route (the JAX
+    package's use_pallas=False: discovery sweep, Jordan inverse /
+    forward factor with int64 products); two 512-column blocks, so the
+    composed trailing update runs.  Bit-equal S, pivot map, is_piv, L."""
+    n, m = 200, 1024
+    X = _low_rank_wide(np.random.default_rng(p), n, m, 150, p)
+    F = device_field(p)
+    jS, jpiv, jis, jL = jelim._eliminate(
+        jnp.asarray(jelim._pad(X, 64)), jnp.int64(p), jnp.asarray(F.weights),
+        F.ndigits, rref, 64, p <= (1 << 23), False)
+    tS, tpiv, tis, tL = elim._eliminate(elim._pad(torch.from_numpy(X), 64),
+                                        p, rref)
+    assert np.array_equal(np.asarray(jS)[:n], tS.numpy()[:n])
+    assert np.array_equal(np.asarray(jpiv), tpiv.numpy())
+    assert np.array_equal(np.asarray(jis)[:n], tis.numpy()[:n])
+    assert int((tpiv >= 0).sum()) == 150
+    if not rref:
+        assert np.array_equal(np.asarray(jL)[:n], tL.numpy()[:n])
+
+
+@pytest.mark.parametrize("p", WIDE)
+def test_dense_entry_points_wide_match_jax(p):
+    """dense_rref / dense_lu through `_run` (force="device") and the
+    device-resident entry points, at (120, 256), against the JAX
+    package's."""
+    X = _low_rank_wide(np.random.default_rng([p, 3]), 120, 256, 80, p)
+    jR, jpc = jelim.dense_rref(X, p, force="device")
+    tR, tpc = elim.dense_rref(X, p, force="device", device="cpu")
+    assert np.array_equal(jR, tR) and np.array_equal(jpc, tpc)
+    jlu = jelim.dense_lu(X, p, force="device")
+    tlu = elim.dense_lu(X, p, force="device", device="cpu")
+    assert jlu[0] == tlu[0] == 80
+    for a, b in zip(jlu[1:], tlu[1:]):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    jR, jpc = jelim.dense_rref_device(jnp.asarray(X), p)
+    tR, tpc = elim.dense_rref_device(torch.from_numpy(X), p)
+    assert np.array_equal(jpc, tpc)
+    assert np.array_equal(np.asarray(jR), tR.numpy())
+    jlu = jelim.dense_lu_device(jnp.asarray(X), p)
+    tlu = elim.dense_lu_device(torch.from_numpy(X), p)
+    for a, b in zip(jlu[:2], tlu[:2]):
+        assert np.array_equal(a, b)
+    for a, b in zip(jlu[2:], tlu[2:]):
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def _chunk_rows(rng, m, k, p=P):
     """k pivot-first rows (value 1 at pivcol) over m columns; each row
     also holds later rows' pivot columns, so the chunk's rows interact."""
     piv = rng.choice(m, k, replace=False)
@@ -97,21 +158,23 @@ def _chunk_rows(rng, m, k):
         later = piv[i + 1:i + 3]
         cols = np.unique(np.concatenate(([piv[i]], extra, later)))
         cols = cols[~np.isin(cols, piv[:i])]          # upper triangular
-        vals = rng.integers(-(P // 2), P // 2 + 1, cols.size)
+        vals = rng.integers(-(p // 2), p // 2 + 1, cols.size)
         vals[cols == piv[i]] = 1
         rows.append((cols.astype(np.int64), vals.astype(np.int32),
                      int(piv[i])))
     return rows
 
 
+@pytest.mark.parametrize("P", [P, 65537, 4294967291])
 @pytest.mark.parametrize("park", [True, False])
-def test_ueliminator_matches_jax(park):
+def test_ueliminator_matches_jax(park, P):
     """Interacting rows compose their chunk ((I + W)^-1 and its winv
     parking); a second, independent segment with levels stacks into a
-    run; a device chunk closes the basis."""
+    run; a device chunk closes the basis.  At 42013 and in the d = 3 / 4
+    tiers."""
     rng = np.random.default_rng(11)
     m = 300
-    rows = _chunk_rows(rng, m, 40)
+    rows = _chunk_rows(rng, m, 40, P)
     used = np.concatenate([c for c, _, _ in rows])
     free = np.setdiff1d(np.arange(m), used)
     piv2 = free[:20]
@@ -138,7 +201,8 @@ def test_ueliminator_matches_jax(park):
         assert np.array_equal(a, b)
 
 
-def test_unit_upper_inverse_log_matches_jax():
+@pytest.mark.parametrize("P", [P, 65537, 16711427, 4294967291])
+def test_unit_upper_inverse_log_matches_jax(P):
     rng = np.random.default_rng(3)
     W = np.triu(rng.integers(-(P // 2), P // 2 + 1, (70, 70)), 1)
     F = device_field(P)

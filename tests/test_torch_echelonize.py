@@ -4,7 +4,11 @@ against the JAX package on the same inputs.  Tolerance 0: ranks, pivot
 maps and U rows are exact.
 
 Primes: 65269 stands for the top of the d = 2 tier, whose bound 65279 =
-29 * 2251 is not prime (rank over it is undefined)."""
+29 * 2251 is not prime (rank over it is undefined); WIDE are both ends
+of d = 3 (65521 still stored int16, 65537 the first int32 prime) and
+two of d = 4 (67108859 of the reference's grid, 2^32 - 5).  Above 65535
+the JAX device finisher stores its basis in int16 and wraps (ROADMAP
+C1): where it would engage, the oracle is the JAX host path."""
 import functools
 
 import numpy as np
@@ -20,15 +24,17 @@ from spasm_tpu.gen import matching_complex_boundary as jmcb
 from spasm_tpu_torch import CSR, EchelonizeOptions, echelonize, sio
 from spasm_tpu_torch.cli import rank as rank_cli
 from spasm_tpu_torch.gen import matching_complex_boundary as mcb
+from spasm_tpu_torch.triangular import sparse_triangular_solve
 from tests.conftest import ALL_TEST_MATRICES, MATRIX
 
 torch.set_num_threads(2)
 
 PRIMES = [3, 257, 42013, 65269]
+WIDE = [65521, 65537, 67108859, 4294967291]
 DEVICE_MIN0 = dict(device_dense_min=0)
 
 
-@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("p", PRIMES + WIDE)
 @pytest.mark.parametrize("name", ALL_TEST_MATRICES)
 def test_rank_matches_jax_host_path(name, p):
     J, _ = jsio.load_csr(MATRIX / name, p)
@@ -38,7 +44,7 @@ def test_rank_matches_jax_host_path(name, p):
     assert fact.r == want
 
 
-@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("p", PRIMES + WIDE)
 @pytest.mark.parametrize("name", ALL_TEST_MATRICES + ["trefethen_2000.sms"])
 def test_default_options_match_jax(name, p):
     """Default options: the round loop (sparse Schur rounds included)
@@ -156,9 +162,22 @@ def test_l_mode_matches_jax(opts):
 
 
 def test_large_prime_raises():
+    """65537 no longer raises: the device finisher (its int32 basis, the
+    torch step sweep) gives mat364 the rank of the JAX host path (the
+    JAX device finisher wraps there, ROADMAP C1), and U is an echelon
+    basis of A's row space."""
+    J, _ = jsio.load_csr(MATRIX / "mat364.sms", 65537)
     A, _ = sio.load_csr(MATRIX / "mat364.sms", 65537)
-    with pytest.raises(NotImplementedError, match="d = 3/4"):
-        echelonize(A, EchelonizeOptions(**DEVICE_MIN0), device="cpu")
+    fact = echelonize(A, EchelonizeOptions(**DEVICE_MIN0), device="cpu")
+    assert fact.r == jechelonize(J, JOpts(enable_dense=False)).r == 364
+    U = fact.U
+    for i in range(U.n):
+        cols, vals = U.row(i)
+        assert vals[0] == 1 and fact.qinv[cols[0]] == i
+    x = np.zeros(A.m, dtype=np.int64)
+    for i in range(A.n):
+        pattern, x = sparse_triangular_solve(U, A, i, fact.qinv, x)
+        assert not np.any(x[pattern][fact.qinv[pattern] < 0])
 
 
 @pytest.mark.parametrize("name,want", [("u1.sms", "100"),
@@ -168,11 +187,12 @@ def test_large_prime_raises():
                                        ("dm.sms", "8"), ("cc.sms", "2"),
                                        ("BIOMD0000000424.int.mpl.sms",
                                         "41")])
-def test_rank_cli(name, want, capsys, monkeypatch):
+@pytest.mark.parametrize("modulus", ["42013", "4294967291"])
+def test_rank_cli(name, want, modulus, capsys, monkeypatch):
     # the tool runs the finisher on the card; here it gets the CPU
     monkeypatch.setattr(rank_cli, "echelonize",
                         functools.partial(echelonize, device="cpu"))
-    assert rank_cli.main(["--modulus", "42013",
+    assert rank_cli.main(["--modulus", modulus,
                           "--matrix", str(MATRIX / name)]) == 0
     assert capsys.readouterr().out.strip() == want
 

@@ -48,11 +48,16 @@ def _same_factor(j, t, with_L=False):
 
 
 def _lu_product(fact):
-    """L @ U mod p, dense (tests/test_lu_solve.py:27-31); int64 is exact
-    here: each sum is at most r * (p/2)^2 < 2^63 for p <= 65279."""
+    """L @ U mod p, dense (tests/test_lu_solve.py:27-31), exact in int64
+    for any p <= 2^32 - 5: L splits into 16-bit halves, so each sum is
+    at most r * 2^16 * (p/2) < 2^63."""
+    p = fact.U.field.p
     L = fact.L.todense().astype(np.int64)
     U = fact.U.todense().astype(np.int64)
-    return fact.U.field.narray(L @ U)
+    lo = ((L + (1 << 15)) & 0xFFFF) - (1 << 15)
+    hi = (L - lo) >> 16
+    X = ((hi @ U) % p * (1 << 16) + lo @ U) % p
+    return np.where(X > p // 2, X - p, X).astype(np.int32)
 
 
 @pytest.mark.parametrize("p", [257, 42013])
@@ -111,7 +116,10 @@ def _pluq_inputs(case):
             sio.load_csr(MATRIX / name, p)[0])
 
 
-PLUQ = [("mat364.sms", 42013), ("trefethen_500.sms", 257), "synthetic700"]
+PLUQ = [("mat364.sms", 42013), ("trefethen_500.sms", 257), "synthetic700",
+        # the d = 3 / 4 tiers (int64 products in every eliminator step)
+        ("mat364.sms", 65537), ("trefethen_500.sms", 65537),
+        ("mat364.sms", 4294967291), ("trefethen_500.sms", 4294967291)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,17 +175,20 @@ def test_complete_pluq_fixture_matches_jax(name):
     assert np.array_equal(_lu_product(t), A.todense())
 
 
-def test_mk10_complete_pluq_matches_jax():
+@pytest.mark.parametrize("p", [42013, 65537, 4294967291])
+def test_mk10_complete_pluq_matches_jax(p):
     """mk10.b3 (4725 x 3150): round 0, the L-mode sparse Schur complement
     through the device branch of schur_sparse (4725 x 3150 >= 2^21),
     round 1, then GPLU in L mode; L, U and p bit-equal, A == L @ U by the
-    verifier."""
-    J, A = jmcb(10, 3), mcb(10, 3)
+    verifier.  In the d = 2, 3 and 4 tiers (at 65537 round 0's sampled
+    density, 5.09 %, is above the threshold: finish_dense in L mode)."""
+    J, A = jmcb(10, 3, p), mcb(10, 3, p)
     if A.n < A.m:
         J, A = J.transpose(), A.transpose()
     t = echelonize(A, EchelonizeOptions(complete=True), device="cpu")
     _same_factor(jechelonize(J, JOpts(complete=True)), t, with_L=True)
-    assert t.r == 2564 and len(t.rounds) == 2
+    assert t.r == 2564 and t.rounds[0]["pivots"] == 2513
+    assert len(t.rounds) == (1 if p == 65537 else 2)
     assert factorization_verify(A, t, 42)
 
 

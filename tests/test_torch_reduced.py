@@ -13,13 +13,16 @@ from spasm_tpu.echelonize import EchelonizeOptions as JOpts
 from spasm_tpu.echelonize import _Engine as JEngine
 from spasm_tpu.gen import matching_complex_boundary
 
+from spasm_tpu_torch.dense.modp import storage_dtype
 from spasm_tpu_torch.dense.reduced import ReducedBasis, subst_schedule
-from spasm_tpu_torch.dense.subst import nred_for, subst_waves
+from spasm_tpu_torch.dense.subst import nred_for, nred_wide, subst_waves
 from spasm_tpu_torch.echelonize import EchelonizeOptions, _Engine
 from spasm_tpu_torch.interop import csr_from_numpy
 from tests.conftest import MATRIX
 
 torch.set_num_threads(2)
+# above the d = 2 tier: the JAX package builds R by its XLA scan there
+WIDE = [65521, 65537, 16711421, 16711427, 67108859, 4294967291]
 
 
 def _random_dag(rng, n, max_refs):
@@ -72,8 +75,46 @@ def test_subst_plain_matches_interpret(p):
 
 
 def test_nred_bounds():
-    for p in (3, 257, 42013, 65279):
+    for p in (3, 257, 42013, 65279, 65521, 65535):
         assert nred_for(p) * (p // 2) ** 2 < (1 << 31) - p
+    for p in WIDE:
+        assert nred_wide(p) * (p // 2) ** 2 <= (1 << 63) - 2 * p
+    assert nred_for(65521) == 2 and nred_wide(4294967291) == 2
+    assert nred_wide(65537) == nred_wide(16711421) == 16
+
+
+@pytest.mark.parametrize("p", WIDE)
+def test_subst_plain_wide_matches_numpy(p):
+    """B1's plain version on R's storage (int32 for p > 65535, int16 at
+    65521) against a row by row oracle in Python ints, over several
+    waves of a random DAG with repeated references; the other storage
+    type raises."""
+    rng = np.random.default_rng(p)
+    npad, M, n = 96, 64, 70
+    k = np.minimum(rng.integers(0, 7, n), np.arange(n))
+    ref_ptr = np.concatenate(([0], np.cumsum(k)))
+    ref_rows = np.concatenate([rng.integers(0, max(i, 1), k[i])
+                               for i in range(n)]).astype(np.int64)
+    order, ptr, wrefs, bounds = _waves(ref_rows, ref_ptr, n)
+    coef = rng.integers(-(p // 2), p // 2 + 1, wrefs.size)
+    coef[::3] = p // 2
+    R0 = rng.integers(-(p // 2), p // 2 + 1, (npad, M))
+    R0[npad - 1] = 0
+    want = [[int(x) for x in r] for r in R0]
+    for pos, row in enumerate(order):
+        for s in range(ptr[pos], ptr[pos + 1]):
+            src = want[wrefs[s]]
+            want[row] = [a - int(coef[s]) * b for a, b in
+                         zip(want[row], src)]
+        want[row] = [(a + p // 2) % p - p // 2 for a in want[row]]
+    dtype = storage_dtype(p)
+    R = torch.from_numpy(R0).to(dtype)
+    subst_waves(R, order, ptr, wrefs, coef.astype(np.int32), bounds, p)
+    assert np.array_equal(R.numpy(), np.asarray(want))
+    other = torch.int32 if dtype == torch.int16 else torch.int16
+    with pytest.raises(ValueError, match="contiguous 2-D"):
+        subst_waves(R.to(other), order, ptr, wrefs, coef.astype(np.int32),
+                    bounds, p)
 
 
 def _both_engines(A, p):
@@ -90,7 +131,8 @@ def _fixture_mk9():
 
 
 @pytest.mark.parametrize("src,p", [("mat364.sms", 42013), ("l1.sms", 3),
-                                   ("mk9.3T", 65269), ("mk9.3T", 257)])
+                                   ("mk9.3T", 65269), ("mk9.3T", 257)]
+                         + [("mk9.3T", p) for p in WIDE])
 def test_reduced_basis_R_matches_jax(src, p):
     if src == "mk9.3T":
         A = _fixture_mk9()
@@ -120,9 +162,9 @@ def _save(A, p):
     return io.BytesIO(buf.getvalue().encode())
 
 
+@pytest.mark.parametrize("p", [42013, 65537, 4294967291])
 @pytest.mark.parametrize("weighted", [False, True])
-def test_form_block_on_jax_R(weighted):
-    p = 42013
+def test_form_block_on_jax_R(weighted, p):
     A, _ = jsio.load_csr(MATRIX / "mat364.sms", p)
     je, te, B = _both_engines(A, p)
     qfree = np.nonzero(je.U.qinv < 0)[0]

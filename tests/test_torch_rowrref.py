@@ -18,9 +18,12 @@ from spasm_tpu_torch.dense.rowrref import (CLUSTER_COLS, CompactBasis,
                                            _row_sweep_plain,
                                            _row_sweep_tiles_plain,
                                            rref_rows_device, row_sweep,
-                                           row_sweep_tiles, row_sweep_variant)
+                                           row_sweep_tiles, row_sweep_variant,
+                                           step_sweep)
 
 torch.set_num_threads(2)
+# above the d = 2 tier (the sweeps take the torch step loop there)
+WIDE = [65521, 65537, 16711421, 16711427, 67108859, 4294967291]
 
 
 def _deficient(rng, B, M, r, p):
@@ -33,6 +36,20 @@ def _deficient(rng, B, M, r, p):
     X = np.where(X > p // 2, X - p, X)
     X[:, -1] = 0
     X[::7] = 0                                   # some zero rows too
+    return X.astype(np.int32)
+
+
+def _deficient_wide(rng, B, M, r, p):
+    """As _deficient for any p <= 2^32 - 5: small left factors keep the
+    int64 products exact."""
+    W = rng.integers(-3, 4, (B, r))
+    W[rng.random((B, r)) < 0.6] = 0
+    G = np.where(rng.random((r, M)) < 0.3,
+                 rng.integers(-(p // 2), p // 2 + 1, (r, M)), 0)
+    X = (W @ G) % p
+    X = np.where(X > p // 2, X - p, X)
+    X[:, -1] = 0
+    X[::7] = 0
     return X.astype(np.int32)
 
 
@@ -104,6 +121,59 @@ def test_b3_plain_sweep_contract():
     # B2's leftmost rule on the same input finds the same rank
     piv2 = _row_sweep_plain(torch.from_numpy(P.copy()), p).numpy()
     assert (piv >= 0).sum() == (piv2 >= 0).sum()
+
+
+@pytest.mark.parametrize("p", WIDE)
+def test_rref_rows_wide_matches_jax(p):
+    """rref_rows_device above the d = 2 tier (`step_sweep` on 64-row
+    sub-panels, int64 products) against the JAX package's XLA step loop
+    over whole 128-row panels: the leftmost-rule RREF is unique.  The
+    rows stored as the prime's basis storage (int16 at 65521)."""
+    rng = np.random.default_rng(p)
+    X = _deficient_wide(rng, 256, 2048, 150, p)
+    want_X, want_piv = _jax_rref(X, p, 128)
+    dtype = torch.int16 if p <= 65535 else torch.int32
+    got_X, got_piv = rref_rows_device(torch.from_numpy(X).to(dtype), p,
+                                      nb=128)
+    assert np.array_equal(got_piv.numpy(), want_piv)
+    assert np.array_equal(got_X.numpy().astype(np.int32), want_X)
+    assert 100 < (want_piv >= 0).sum() <= 150
+
+
+@pytest.mark.parametrize("p", [65537, 4294967291])
+def test_step_sweep_matches_b2_plain_rule(p):
+    """One step_sweep of a (64, M) sub-panel: the leftmost rule, the same
+    pivots and values as B2's plain version (exact in int64: int32 there
+    would wrap above the d = 2 tier)."""
+    rng = np.random.default_rng(p + 1)
+    P = _deficient_wide(rng, 64, 512, 40, p)
+    a, b = torch.from_numpy(P.copy()), torch.from_numpy(P.copy())
+    pa = step_sweep(a, p)
+    pb = _row_sweep_plain(b, p)
+    assert torch.equal(pa, pb) and torch.equal(a, b)
+    assert int((pa >= 0).sum()) == 40
+
+
+@pytest.mark.parametrize("p", [65537, 4294967291])
+def test_compact_basis_wide(p):
+    """CompactBasis stores int32 rows above 65535 (not the JAX package's
+    int16: ROADMAP C1); its apply and add go through the wide
+    matmul_digits, and the basis eliminates its own block to zero."""
+    rng = np.random.default_rng(p + 2)
+    X = torch.from_numpy(_deficient_wide(rng, 128, 2048, 70, p))
+    Xr, piv = rref_rows_device(X.clone(), p, nb=128)
+    piv = piv.numpy()
+    hit = np.nonzero(piv >= 0)[0]
+    basis = CompactBasis(2048, p, 64, "cpu")
+    assert basis.dtype == torch.int32
+    half = hit.size // 2
+    basis.add(Xr[torch.from_numpy(hit[:half])], piv[hit[:half]])
+    basis.add(Xr[torch.from_numpy(hit[half:])], piv[hit[half:]])
+    assert not basis.apply(X.clone()).any()
+    R, jpos = basis.export()
+    assert R.dtype == torch.int32
+    Rn = R.numpy()
+    assert np.array_equal(Rn[:, jpos], np.eye(hit.size, dtype=np.int32))
 
 
 def test_rref_rows_device_dispatch_and_basis():

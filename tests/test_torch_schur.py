@@ -117,6 +117,36 @@ def test_densify_reduces_large_duplicate_sums():
     assert X[0, 2] == 300 - p and X.dtype == torch.int32
 
 
+@pytest.mark.parametrize("p", [65537, 16711421, 16711427, 4294967291])
+def test_densify_wide_duplicate_sums_match_numpy(p):
+    """Above the d = 2 tier duplicates sum in int64 and reduce once (at
+    2^32 - 5 the sums pass 2^31), and the block equals a
+    numpy int64 oracle (not the JAX _densify, which sums in int16
+    unreduced: ROADMAP C8)."""
+    rng = np.random.default_rng(p)
+    n, m = 30, 90
+    lens = rng.integers(0, 12, n)
+    indptr = np.concatenate(([0], np.cumsum(lens))).astype(np.int64)
+    cols = rng.integers(0, 9, int(indptr[-1]))        # many duplicates
+    vals = rng.integers(p // 2 - 1000, p // 2 + 1, cols.size)
+    vals[::2] *= -1
+    vals[5::7] = p // 2
+    A = CSR(n, m, Field(p), indptr, cols.astype(np.int32),
+            vals.astype(np.int32))
+    rows = rng.permutation(n)[:25]
+    want = np.zeros((32, 128), np.int64)
+    for k, i in enumerate(rows):
+        np.add.at(want[k], cols[indptr[i]:indptr[i + 1]],
+                  vals[indptr[i]:indptr[i + 1]])
+    assert np.abs(want).max() > p // 2
+    assert p < 1 << 31 or np.abs(want).max() >= 1 << 31
+    want = want % p
+    want = np.where(want > p // 2, want - p, want)
+    got = DeviceCSR(A, device="cpu").densify(rows, Bp=32)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
 def _mk10():
     J, A = jmcb(10, 3), mcb(10, 3)
     if A.n < A.m:                                # the rank tool's side
