@@ -2,7 +2,9 @@
 and chip_smoke.py, kept beside them and out of the spasm_tpu_torch
 package: random substitution waves for kernel B1, sub-panels for the row
 sweeps B2/B3, column panels for the panel kernel
-B4, and CUDA-event timing.
+B4, bench.py config 5's two instances (`scc_banded`, `upper_triangular`,
+copied here because bench.py imports the JAX package), and CUDA-event
+timing.
 
 Inputs are made with numpy from an explicit Generator, so a kernel and its
 plain version see the same numbers on any device.
@@ -124,6 +126,47 @@ def panel_block(rng: np.random.Generator, n: int, p: int):
     X[:, 64 + 40] = 0
     X[::9] = 0
     return X.astype(np.int32), rng.random(n) < 0.1
+
+
+def scc_banded(n: int, blk: int, extra: int, p: int):
+    """bench.py config 5's DM instance (bench.py `_scc_banded`): n x n
+    with ~n/blk SCCs of size blk: unit diagonal, a superdiagonal within
+    each block, a band-closing entry per block, and `extra` random
+    strictly-upper entries (cross-SCC DAG edges)."""
+    from spasm_tpu_torch.csr import COO
+    rng = np.random.default_rng(7)
+    di = np.arange(n)
+    sup_i = np.asarray([i for i in range(n) if (i + 1) % blk], np.int64)
+    sup_j = sup_i + 1
+    base = np.arange(0, n - blk + 1, blk)
+    close_i, close_j = base, base + blk - 1          # cycle closers
+    xi = rng.integers(0, n - 1, extra)
+    xj = rng.integers(1, n, extra)
+    up = xi < xj
+    # within-block chain points UP (i -> i+1); the closer points DOWN
+    # (base+blk-1 -> base), so each block is one directed cycle = 1 SCC
+    rows = np.concatenate([di, sup_i, close_j, xi[up]])
+    cols = np.concatenate([di, sup_j, close_i, xj[up]])
+    vals = rng.integers(1, p, rows.size)
+    T = COO.from_entries(n, n, p, rows, cols, vals)
+    return T.tocsr()
+
+
+def upper_triangular(n: int, p: int):
+    """bench.py config 5's certificate instance (bench.py
+    `bench_dm_cert`): n x n of full rank, a nonzero diagonal plus 4n
+    random strictly-upper entries, so every pivot is structural."""
+    from spasm_tpu_torch.csr import COO
+    rng = np.random.default_rng(11)
+    di = np.arange(n)
+    xi = rng.integers(0, n - 1, 4 * n)
+    xj = rng.integers(1, n, 4 * n)
+    keep = xi < xj
+    T = COO.from_entries(n, n, p, np.concatenate([di, xi[keep]]),
+                         np.concatenate([di, xj[keep]]),
+                         rng.integers(1, p, n + int(keep.sum())))
+    T.n = T.m = n
+    return T.tocsr()
 
 
 def cuda_ms(fn: Callable[[], object], reps: int) -> float:

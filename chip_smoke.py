@@ -64,7 +64,25 @@ Phases, each fatal on failure (no failure is caught):
      to the rank path's, L and U materialized and verified.  B1 wide
      must launch exactly once per reduced-basis build, and B1 (int16),
      B2, B3 and B4 never;
-  8. a JSON line of the kernels (launches summed over the paths), then
+  8. the tools, with the launch counts zeroed again: (a) phase 5's
+     PLUQ16k factors: a rank certificate created, verified (r = 15997),
+     saved and loaded back, refused on A with one entry changed, and
+     gesv on B = X.A for 64 random X plus one random row (refused);
+     (b) the kernel basis of synthetic_sparse(16000, 16512, 8, 42013)
+     (bench.py config 4's rank-deficient shape) factored on the card
+     with default options (the finishers taken are printed), A.K^T = 0,
+     kernel_from_rref(*rref(fact)) bit-equal to it; (c) bench.py config 5
+     at 120 000 rows: dulmage_mendelsohn on the banded SCC instance
+     (15002 blocks, the native matching) and the certificate of the
+     upper-triangular instance after a complete PLUQ on the card; (d) the
+     tools in fresh processes on tests/Matrix fixtures: rank -c -o,
+     check_cert (accepts, then refuses on another matrix), echelonize
+     --rref (byte-equal to rref() of phase 5's CPU factorization, as is
+     rref() of a card factorization in this process), kernel, solve and
+     dm -v; (e) phase 7's complete PLUQ at 2^32 - 5: the certificate
+     roundtrip and gesv on 64 rows.  Seconds of each step are printed;
+     B4 (RREF) and the kernels of (b)'s route must have launched;
+  9. a JSON line of the kernels (launches summed over the paths), then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -86,6 +104,12 @@ HERE = pathlib.Path(__file__).resolve().parent
 P = 42013                                   # the tools' default modulus
 MK = {"mk12.b4": (12, 4, 39535), "mk13.b5": (13, 5, 134211)}
 PLUQ16K_RANK = 15997                        # BENCH_r05.json pluq16k_rank
+# right-hand sides of (a)'s gesv: bench.py config 4 solves 1024
+# (bench.py:207), but on PLUQ16k's factors a row takes ~0.32 s on the
+# card machine's host (PERF.md section 6), so 1024 would take five minutes
+GESV_RHS = 64
+N5 = 120_000                                # bench.py config 5's rows
+DM_BLOCKS = 15002                           # BENCH_r05.json dm_blocks (seeded)
 P4 = 4294967291                             # 2^32 - 5, the top of d = 4
 P3 = 65537                                  # the first int32-stored prime
 # bounds: device memory rate, and the float32 rate outside the tensor
@@ -568,7 +592,8 @@ def dense_finisher_phase() -> dict:
         f"({time.time() - t0:.1f} s)")
     if not ok:
         sys.exit("chip_smoke: PLUQ16k fails factorization_verify")
-    del fact, U, L
+    pluq16k = (A16, fact)                  # the tools phase reuses it
+    del U, L
     _timed_rank(A16, PLUQ16K_RANK, "PLUQ16k rank (finish_dense, RREF, "
                 "device_dense_width=0)",
                 EchelonizeOptions(device_dense_width=0))
@@ -579,7 +604,7 @@ def dense_finisher_phase() -> dict:
         f"n = {n} takes {panel_variant(n)}" for n in (1024, 1536, 4608))
         + f"; launches by variant {counts['B4 cluster']} cluster, "
         f"{counts['B4 cooperative']} cooperative")
-    return counts
+    return counts, pluq16k, (A, ref_rank)
 
 
 def _round_lines(fact) -> None:
@@ -750,7 +775,8 @@ def wide_phase(mats) -> dict:
         f"({time.time() - t0:.1f} s)")
     if not ok:
         sys.exit("chip_smoke: (d) fails factorization_verify")
-    del fact, U, L
+    wide16k = (A16, fact)                  # the tools phase reuses it
+    del U, L
     ReducedBasis.build = build
     counts = dict(_cuda.launches)
     calls = dict(_cuda.calls)
@@ -764,6 +790,252 @@ def wide_phase(mats) -> dict:
     if narrow:
         sys.exit(f"chip_smoke: d = 2 kernels launched at p > 65535: "
                  f"{narrow}")
+    return counts, wide16k
+
+
+def _finishers_taken(fn):
+    """fn() and the names of the echelonize finishers it entered, in
+    order."""
+    from spasm_tpu_torch.echelonize import _Engine
+    taken = []
+    saved = {k: getattr(_Engine, k) for k in (
+        "finish_device_dense", "finish_dense", "finish_dense_lowrank",
+        "finish_gplu")}
+
+    def spy(name, f):
+        def run(self, *a, **kw):
+            taken.append(name)
+            return f(self, *a, **kw)
+        return run
+
+    for k, f in saved.items():
+        setattr(_Engine, k, spy(k, f))
+    out = fn()
+    for k, f in saved.items():
+        setattr(_Engine, k, f)
+    return out, taken
+
+
+def _certificate_roundtrip(A, fact, label: str) -> None:
+    """rank_certificate_create -> rank_certificate_verify true with r =
+    fact.r; certificate_save -> certificate_load the same fields; false
+    against a copy of A with one entry changed.  The fingerprint is the
+    CSR's own (checkpoint.matrix_fingerprint)."""
+    from spasm_tpu_torch import (certificate_load, certificate_save,
+                                 rank_certificate_create,
+                                 rank_certificate_verify)
+    from spasm_tpu_torch.checkpoint import matrix_fingerprint
+    h = matrix_fingerprint(A)
+    t0 = time.time()
+    proof = rank_certificate_create(A, h, fact)
+    t1 = time.time()
+    ok = rank_certificate_verify(A, h, proof)
+    t2 = time.time()
+    if not ok or proof.r != fact.r:
+        sys.exit(f"chip_smoke: {label}: the rank certificate (r = {proof.r}, "
+                 f"rank {fact.r}) does not verify")
+    buf = io.StringIO()
+    certificate_save(proof, buf)
+    buf.seek(0)
+    back = certificate_load(buf)
+    if back is None or not all(
+            np.array_equal(getattr(back, f), getattr(proof, f))
+            for f in ("r", "prime", "hash", "i", "j", "x", "y")):
+        sys.exit(f"chip_smoke: {label}: certificate_load does not give back "
+                 f"the saved certificate")
+    bad = A.copy()
+    bad.data[0] = A.field.normalize(int(bad.data[0]) + 1)
+    if rank_certificate_verify(bad, h, proof):
+        sys.exit(f"chip_smoke: {label}: the certificate verifies on a "
+                 f"changed matrix")
+    log(f"{label}: rank certificate r = {proof.r}: create {t1 - t0:.3f} s, "
+        f"verify {t2 - t1:.3f} s, true; save / load the same fields "
+        f"({len(buf.getvalue())} bytes); false on A with one entry changed")
+
+
+def _gesv_check(A, fact, k: int, label: str, outside: bool) -> None:
+    """gesv on B = X.A for k rows X drawn from default_rng(1) in [0, p)
+    (B built on the host, one spmv.xApy per row), plus, when outside, one
+    random row, which a rank-deficient A must refuse: every other row
+    comes back ok, and X'.A == B on each."""
+    from spasm_tpu_torch import gesv
+    from spasm_tpu_torch.csr import CSR
+    from spasm_tpu_torch.spmv import xApy
+    rng = np.random.default_rng(1)
+    X = rng.integers(0, A.prime, (k, A.n))
+    t0 = time.time()
+    rows = []
+    for x in X:
+        b = np.zeros(A.m, np.int32)
+        xApy(A.field.narray(x).astype(np.int32), A, b)
+        nz = np.nonzero(b)[0]
+        rows.append((nz.astype(np.int32), b[nz]))
+    if outside:
+        b = A.field.narray(rng.integers(0, A.prime, A.m)).astype(np.int32)
+        nz = np.nonzero(b)[0]
+        rows.append((nz.astype(np.int32), b[nz]))
+    B = CSR.from_rows(len(rows), A.m, A.prime, rows)
+    t_b = time.time() - t0
+    t0 = time.time()
+    Xs, ok = gesv(fact, B)
+    t_g = time.time() - t0
+    if not ok[:k].all() or (outside and ok[k]):
+        sys.exit(f"chip_smoke: {label}: gesv ok {int(ok[:k].sum())} of {k} "
+                 f"solvable rows" + (f", random row ok {bool(ok[k])}"
+                                     if outside else ""))
+    for i in range(k):
+        x = np.zeros(Xs.m, np.int32)
+        c, v = Xs.row(i)
+        x[c] = v
+        got = np.zeros(A.m, np.int32)
+        xApy(x, A, got)
+        want = np.zeros(A.m, np.int32)
+        c, v = B.row(i)
+        want[c] = v
+        if not np.array_equal(got, want):
+            sys.exit(f"chip_smoke: {label}: gesv row {i}: X'.A != B")
+    log(f"{label}: gesv on {B.n} right-hand sides: {t_g:.3f} s "
+        f"({t_g / B.n * 1e3:.2f} ms a row; B built in {t_b:.1f} s), "
+        f"{int(ok.sum())} ok, X'.A == B on every solvable row"
+        + ("; the random row refused" if outside else ""))
+
+
+def _tool(args, label: str, want_rc: int = 0, stdin=None):
+    """One fresh process of a port tool, as a user runs it."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", f"spasm_tpu_torch.cli.{args[0]}"]
+                       + args[1:], input=stdin, cwd=HERE, capture_output=True,
+                       timeout=600)
+    wall = time.time() - t0
+    if r.returncode != want_rc:
+        sys.exit(f"chip_smoke: {label} exited {r.returncode}, not {want_rc}:\n"
+                 + r.stderr.decode()[-3000:])
+    log(f"  {label}: exit {r.returncode}, process wall {wall:.1f} s")
+    return r
+
+
+def tools_phase(pluq16k, tref, wide16k) -> dict:
+    """The factorization's consumers and the tools, with the launch counts
+    zeroed first (see the module docstring, phase 8)."""
+    from spasm_tpu_torch import (EchelonizeOptions, _cuda, dulmage_mendelsohn,
+                                 echelonize, kernel, kernel_from_rref, native,
+                                 rref, sio)
+    from spasm_tpu_torch.gen import synthetic_sparse
+    from spasm_tpu_torch.spmv import xApy
+    from chip_checks import scc_banded, upper_triangular
+    t_phase = time.time()
+    if not native.available():
+        sys.exit("chip_smoke: the native library (matching, solves) did "
+                 "not build")
+    Aw = synthetic_sparse(16000, 16512, 8, P)
+    A5 = scc_banded(N5, 8, 4 * N5, P)
+    Au = upper_triangular(N5, P)
+    _cuda.reset_launches()
+
+    # (a) PLUQ16k: phase 5's factorization, L and U already on the host
+    A16, f16 = pluq16k
+    _certificate_roundtrip(A16, f16, "(a) PLUQ16k")
+    _gesv_check(A16, f16, GESV_RHS, "(a) PLUQ16k", outside=True)
+
+    # (b) the kernel basis of bench.py config 4's rank-deficient shape
+    fact, taken = _finishers_taken(lambda: _timed_rank(
+        Aw, None, f"(b) synthetic_sparse(16000, 16512, 8, {P}), default "
+        "options", None))
+    log(f"  (b) finishers taken: {taken}")
+    t0 = time.time()
+    K = kernel(fact)
+    t_k = time.time() - t0
+    if K.n != Aw.m - fact.r or K.n < 512:
+        sys.exit(f"chip_smoke: (b) kernel has {K.n} rows, rank {fact.r}")
+    At = Aw.transpose()
+    for i in range(K.n):
+        x = np.zeros(K.m, np.int32)
+        c, v = K.row(i)
+        x[c] = v
+        y = np.zeros(At.m, np.int32)
+        xApy(x, At, y)
+        if np.any(y):
+            sys.exit(f"chip_smoke: (b) kernel row {i} does not annihilate A")
+    t0 = time.time()
+    R, Rqinv = rref(fact)
+    t_r = time.time() - t0
+    t0 = time.time()
+    K2 = kernel_from_rref(R, Rqinv)
+    t_kr = time.time() - t0
+    if not _same_csr(K, K2):
+        sys.exit("chip_smoke: (b) kernel_from_rref(*rref(fact)) != "
+                 "kernel(fact)")
+    log(f"(b) kernel: {K.n} x {K.m}, {K.nnz} nnz in {t_k:.3f} s, A.K^T = 0; "
+        f"rref {R.nnz} nnz in {t_r:.3f} s; kernel_from_rref {t_kr:.3f} s, "
+        f"bit-equal to kernel(fact)")
+    del fact, K, K2, R
+
+    # (c) bench.py config 5 at 120 000 rows
+    t0 = time.time()
+    dm = dulmage_mendelsohn(A5)
+    t_dm = time.time() - t0
+    if dm.nb != DM_BLOCKS:
+        sys.exit(f"chip_smoke: (c) DM gives {dm.nb} blocks, not {DM_BLOCKS}")
+    log(f"(c) dulmage_mendelsohn on scc_banded({N5}, 8, {4 * N5}): {dm.nb} "
+        f"blocks in {t_dm:.3f} s (native matching)")
+    fact = _timed_rank(Au, N5, f"(c) upper_triangular({N5}) complete PLUQ",
+                       EchelonizeOptions(L=True, complete=True))
+    _certificate_roundtrip(Au, fact, "(c) upper_triangular")
+    del fact
+
+    # (d) the tools in fresh processes, trefethen_2000 at the default
+    # modulus; echelonize --rref held to rref() of phase 5's CPU run
+    A, ref_rank = tref
+    mat = HERE / "tests" / "Matrix"
+    tfile = str(mat / "trefethen_2000.sms")
+    cert = HERE / "build" / "chip_smoke" / "trefethen_2000.cert"
+    cert.parent.mkdir(parents=True, exist_ok=True)
+    log("(d) the tools, fresh processes:")
+    r = _tool(["rank", "-c", "-o", str(cert)], "rank -c -o FILE < "
+              "trefethen_2000.sms", stdin=pathlib.Path(tfile).read_bytes())
+    if r.stdout.decode().strip() != "2000" or \
+            b"CORRECT certificate" not in r.stderr:
+        sys.exit("chip_smoke: (d) rank -c did not certify rank 2000")
+    _tool(["check_cert", "-c", str(cert), "--matrix", tfile],
+          "check_cert on trefethen_2000")
+    _tool(["check_cert", "-c", str(cert), "--matrix",
+           str(mat / "small.sms")], "check_cert on small.sms", want_rc=1)
+    R, _ = rref(ref_rank)
+    want = io.StringIO()
+    sio.save_csr(R, want)
+    r = _tool(["echelonize", "--rref", "--matrix", tfile],
+              "echelonize --rref on trefethen_2000")
+    if r.stdout != want.getvalue().encode():
+        sys.exit("chip_smoke: (d) echelonize --rref differs from rref() of "
+                 "the CPU factorization")
+    fact = echelonize(A, device="cuda")
+    if not _same_csr(rref(fact)[0], R):
+        sys.exit("chip_smoke: (d) rref of the card factorization differs "
+                 "from the CPU one")
+    log(f"  echelonize --rref: {len(r.stdout)} bytes, equal to rref() of the "
+        f"CPU factorization, and so is rref() of the card's in this process")
+    r = _tool(["kernel", "--modulus", "257", "--matrix",
+               str(mat / "singular.sms")], "kernel on singular.sms at 257")
+    Ks, _ = sio.load_csr(io.BytesIO(r.stdout), 257)
+    if Ks.n != 1:
+        sys.exit(f"chip_smoke: (d) kernel of singular.sms has {Ks.n} rows")
+    _tool(["solve", "--modulus", "257", "--rhs", str(mat / "singular.sms"),
+           "--matrix", str(mat / "singular.sms")],
+          "solve on singular.sms at 257")
+    r = _tool(["dm", "-v", "--matrix", str(mat / "dm.sms")], "dm -v on dm.sms")
+    if b"structural rank" not in r.stdout:
+        sys.exit("chip_smoke: (d) dm -v printed no structural rank")
+
+    # (e) d = 4: phase 7's complete PLUQ at 2^32 - 5, factors on the host
+    Aw4, fw4 = wide16k
+    _certificate_roundtrip(Aw4, fw4, f"(e) PLUQ16k at p = {P4}")
+    _gesv_check(Aw4, fw4, 64, f"(e) PLUQ16k at p = {P4}", outside=False)
+
+    counts = dict(_cuda.launches)
+    keys = ["B4 rref"] + (["B1", "B3"] if "finish_device_dense" in taken
+                          else [])
+    _launched(counts, keys, "the tools")
+    log(f"the tools: {time.time() - t_phase:.1f} s in all")
     return counts
 
 
@@ -776,20 +1048,19 @@ def main() -> int:
     mats = matching_complexes()
     kernels = kernel_phase(mats)
     counts = rank_path_phase(mats)
-    counts4 = dense_finisher_phase()
+    counts4, pluq16k, tref = dense_finisher_phase()
     counts5 = rounds_phase(mats)
-    counts6 = wide_phase(mats)
+    counts6, wide16k = wide_phase(mats)
+    counts7 = tools_phase(pluq16k, tref, wide16k)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "spasm_tpu"))
     if leaked:
         sys.exit(f"chip_smoke: JAX modules were imported: {leaked[:5]}")
-    # launches: the sum over the paths that run the kernel
-    for k in ("B2", "B3"):
-        kernels[k]["launches"] = counts[k]
-    kernels["B1"]["launches"] = counts["B1"] + counts5["B1"]
-    kernels["B4"]["launches"] = sum(c["B4 rref"] + c["B4 lu"]
-                                    for c in (counts4, counts5))
-    kernels["B1 wide"]["launches"] = counts6["B1 wide"]
+    # launches: the sum over the paths (phases 4-8)
+    paths = (counts, counts4, counts5, counts6, counts7)
+    for k, keys in (("B1", ["B1"]), ("B1 wide", ["B1 wide"]), ("B2", ["B2"]),
+                    ("B3", ["B3"]), ("B4", ["B4 rref", "B4 lu"])):
+        kernels[k]["launches"] = sum(c[key] for c in paths for key in keys)
     log(f"chip_smoke: {time.time() - t0:.1f} s in all, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -8,15 +8,18 @@ digit tiers, dense/modp.py; the tools' default modulus is 42013):
 pivot search, sparse Schur complements) and every finisher — the device-resident rank finisher,
 the blocked dense finisher (RREF, or LU for complete PLUQ:
 `EchelonizeOptions(L=True, complete=True)`), the low-rank finisher with
-its completion test and the GPLU finisher on the host — plus
-`certificate.factorization_verify` and the `rank` CLI
-(`python -m spasm_tpu_torch.cli.rank`).  Other paths (checkpoints,
-rank certificates, the other tools) raise NotImplementedError naming
-their ROADMAP item.
+its completion test and the GPLU finisher on the host — and the
+factorization's consumers on the host: `rref`, `kernel` /
+`kernel_from_rref`, `solve` / `gesv`, rank certificates (create, verify,
+save, load) and `factorization_verify`, `maximum_matching` /
+`structural_rank`, `dulmage_mendelsohn` / `strongly_connected_components`;
+and the ten CLI tools (`python -m spasm_tpu_torch.cli.rank`, see cli/).
+Only checkpoints raise NotImplementedError, naming their ROADMAP item.
 
 Layout: the host modules (field, csr, hashing, sio, gen, pivots, spmv,
-triangular and the native C++ pivot search, triangular solves and GPLU) are
-vendored from `spasm_tpu` with only their imports changed; the device
+triangular, rref, kernel, solve, certificate, matching, dm and the native
+C++ pivot search, triangular solves, GPLU and matching) are vendored from
+`spasm_tpu` with only their imports and native entry points changed; the device
 side is plain functions on tensors and small classes holding device
 tensors (`ReducedBasis`, `CompactBasis`, `UEliminator`).  The
 device is explicit: `echelonize(A, opts, device="cuda")`; the CPU runs
@@ -37,6 +40,22 @@ from .csr import CSR, COO                                     # noqa: E402
 from .hashing import PRNG, sha256_new                         # noqa: E402
 from . import sio                                             # noqa: E402
 from .echelonize import EchelonizeOptions, echelonize, LU     # noqa: E402
+from .solve import solve, gesv                                # noqa: E402
+from .kernel import kernel, kernel_from_rref                  # noqa: E402
+from .rref import rref                                        # noqa: E402
+from .certificate import (rank_certificate_create,            # noqa: E402
+                          rank_certificate_verify,
+                          factorization_verify,
+                          certificate_save, certificate_load)
+from .dm import dulmage_mendelsohn, strongly_connected_components  # noqa: E402
+from .matching import maximum_matching, structural_rank       # noqa: E402
 
-__all__ = ["Field", "CSR", "COO", "PRNG", "sha256_new", "sio",
-           "EchelonizeOptions", "echelonize", "LU"]
+__all__ = [
+    "Field", "CSR", "COO", "PRNG", "sha256_new", "sio",
+    "EchelonizeOptions", "echelonize", "LU", "solve", "gesv",
+    "kernel", "kernel_from_rref", "rref",
+    "rank_certificate_create", "rank_certificate_verify",
+    "factorization_verify", "certificate_save", "certificate_load",
+    "dulmage_mendelsohn", "strongly_connected_components",
+    "maximum_matching", "structural_rank",
+]

@@ -73,6 +73,11 @@ def opts_from_args(args) -> EchelonizeOptions:
     )
 
 
+def load_input(args, want_hash: bool = False):
+    src = args.matrix if args.matrix is not None else sys.stdin.buffer
+    return sio.load_csr(src, args.modulus, want_hash=want_hash)
+
+
 def load_input_triplet(args, want_hash: bool = False):
     src = args.matrix if args.matrix is not None else sys.stdin.buffer
     return sio.load_triplet(src, args.modulus, want_hash=want_hash)
@@ -82,3 +87,9 @@ def maybe_trace(args):
     """Context capturing a profiler trace when --profile was given."""
     from ..profiling import maybe_trace as _mt
     return _mt(getattr(args, "profile", None))
+
+
+def open_output(filename):
+    if filename is None:
+        return sys.stdout, False
+    return open(filename, "w"), True

@@ -1143,6 +1143,11 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
     if opts.checkpoint_file:
         _not_ported("checkpoint_file", "checkpoints and multi-GPU")
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        # small L-mode inputs never touch the device: fail here rather
+        # than finish them on the host behind the caller's back
+        raise RuntimeError("echelonize: CUDA is not available; pass "
+                           "device='cpu' to run on the host")
 
     n, m = A.n, A.m
     t0 = time.time()

@@ -15,6 +15,7 @@ Surface (the subset the ported paths call):
   fl_column_pivots   — Faugere-Lachartre pass on columns
   topo_order         — topological order of the pivotal rows
   row_levels         — topological levels of the pivotal rows
+  matching           — maximum bipartite matching (DFS with lookahead)
 """
 from __future__ import annotations
 
@@ -86,6 +87,9 @@ def available() -> bool:
         I64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64]
     lib.spasm_gplu_sizes.argtypes = [I64]
     lib.spasm_gplu_fetch.argtypes = [I64, I32, I32, I64, I64, I32, I64]
+    lib.spasm_matching.restype = ctypes.c_int64
+    lib.spasm_matching.argtypes = [I64, I32, ctypes.c_int32,
+                                   ctypes.c_int32, I64, I64]
     lib.spasm_cycle_free_pivots.restype = ctypes.c_int64
     lib.spasm_cycle_free_pivots.argtypes = [
         I64, I32, ctypes.c_int32, ctypes.c_int32, I64, I64,
@@ -221,3 +225,18 @@ def gplu(S, rows, row_origin, U0, qinv: np.ndarray, prime: int,
               u_vals[offs[k]:offs[k + 1]].copy()) for k in range(nu)]
     return (int(npiv), urows, (l_i[:lnnz], l_j[:lnnz], l_x[:lnnz]),
             piv_origin[:nu])
+
+
+def matching(A) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Maximum matching of A's bipartite graph: (size, jmatch, imatch),
+    jmatch[i] the column matched to row i, imatch[j] the row matched to
+    column j (-1 when unmatched)."""
+    if not available():
+        raise RuntimeError("the native library did not build")
+    jmatch = np.empty(A.n, np.int64)
+    imatch = np.empty(A.m, np.int64)
+    size = _lib.spasm_matching(
+        _p64(_arr64(A.indptr)), _p32(_arr32(A.indices)), A.n, A.m,
+        _p64(jmatch if A.n else _EMPTY64),
+        _p64(imatch if A.m else _EMPTY64))
+    return int(size), jmatch, imatch

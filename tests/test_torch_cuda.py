@@ -1,6 +1,8 @@
 """The port's CUDA kernels on an NVIDIA card against their plain torch
-versions on the same inputs (tolerance 0: exact integer arithmetic), and
-the rank path on the card against its own CPU run.
+versions on the same inputs (tolerance 0: exact integer arithmetic), the
+rank path on the card against its own CPU run, and the factorization's
+consumers and tools after a card factorization (chip_smoke.py's phase
+8 at small size).
 
 Every test here is marked `cuda` and skips without a card.  On a machine
 with one (--noconftest: tests/conftest.py imports JAX, which these tests
@@ -8,15 +10,22 @@ do not need):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import io
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from chip_checks import (b2_panel, b3_panel, deficient_panel, panel_block,
-                         random_waves)
-from spasm_tpu_torch import CSR, EchelonizeOptions, _cuda, echelonize, sio
+                         random_waves, scc_banded, upper_triangular)
+from spasm_tpu_torch import (CSR, EchelonizeOptions, _cuda,
+                             dulmage_mendelsohn, echelonize, gesv, kernel,
+                             kernel_from_rref, rank_certificate_create,
+                             rank_certificate_verify, rref, sio)
+from spasm_tpu_torch.checkpoint import matrix_fingerprint
 from spasm_tpu_torch.certificate import factorization_verify
 from spasm_tpu_torch.dense.elim import dense_lu_device, dense_rref_device
 from spasm_tpu_torch.dense.modp import matmul_digits, storage_dtype
@@ -31,8 +40,9 @@ from spasm_tpu_torch.dense.subst import (_subst_waves_plain, nred_for,
                                          nred_wide, subst_waves)
 from spasm_tpu_torch.device_csr import DeviceCSR
 from spasm_tpu_torch.field import Field
-from spasm_tpu_torch.gen import matching_complex_boundary
+from spasm_tpu_torch.gen import matching_complex_boundary, synthetic_sparse
 from spasm_tpu_torch.schur import _pack_nonzero_device
+from spasm_tpu_torch.spmv import xApy
 
 pytestmark = pytest.mark.cuda
 
@@ -406,3 +416,120 @@ def test_mk10_rounds_card_matches_cpu(dev, opts):
         assert np.array_equal(a.indptr, b.indptr)
         assert np.array_equal(a.indices[:a.nnz], b.indices[:b.nnz])
         assert np.array_equal(a.data[:a.nnz], b.data[:b.nnz])
+
+
+def _same_csr(a, b):
+    return ((a.n, a.m) == (b.n, b.m) and np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices[:a.nnz], b.indices[:b.nnz])
+            and np.array_equal(a.data[:a.nnz], b.data[:b.nnz]))
+
+
+@pytest.mark.parametrize("p", [42013, 4294967291])
+def test_certificate_and_gesv_after_card_pluq(dev, p):
+    """(a) / (e) of chip_smoke.py's tools phase: a complete PLUQ on the
+    card (B4 LU at 42013) equal to the CPU one; its rank certificate the
+    CPU one's and true; gesv on B = X.A plus one random row: the same
+    X and ok as on the CPU factorization, X'.A == B where ok."""
+    A = synthetic_sparse(1500, 1500, 8, p)
+    opts = EchelonizeOptions(complete=True)
+    want = echelonize(A, opts, device="cpu")
+    got = echelonize(A, opts, device="cuda")
+    assert got.r == want.r and np.array_equal(got.p, want.p)
+    assert _same_csr(got.U, want.U) and _same_csr(got.L, want.L)
+    h = matrix_fingerprint(A)
+    cg, cw = (rank_certificate_create(A, h, f) for f in (got, want))
+    for f in ("r", "i", "j", "x", "y"):
+        assert np.array_equal(getattr(cg, f), getattr(cw, f))
+    assert rank_certificate_verify(A, h, cg)
+    rng = np.random.default_rng(1)
+    rows = []
+    for x in rng.integers(0, p, (16, A.n)):
+        b = np.zeros(A.m, np.int32)
+        xApy(A.field.narray(x).astype(np.int32), A, b)
+        rows.append((np.nonzero(b)[0].astype(np.int32), b[b != 0]))
+    b = A.field.narray(rng.integers(0, p, A.m)).astype(np.int32)
+    rows.append((np.nonzero(b)[0].astype(np.int32), b[b != 0]))
+    B = CSR.from_rows(17, A.m, p, rows)
+    Xg, okg = gesv(got, B)
+    Xw, okw = gesv(want, B)
+    assert _same_csr(Xg, Xw) and np.array_equal(okg, okw)
+    assert okg[:16].all() and okg[16] == (got.r == A.m)
+    for i in np.nonzero(okg)[0]:
+        x = np.zeros(Xg.m, np.int32)
+        c, v = Xg.row(i)
+        x[c] = v
+        y = np.zeros(A.m, np.int32)
+        xApy(x, A, y)
+        w = np.zeros(A.m, np.int32)
+        c, v = B.row(i)
+        w[c] = v
+        assert np.array_equal(y, w)
+
+
+def test_kernel_after_card_echelonize(dev):
+    """(b): the kernel basis of a wide rank-deficient synthetic matrix
+    factored on the card with default options: equal to the CPU one's,
+    kernel_from_rref(*rref(fact)) bit-equal to it, A.K^T = 0."""
+    A = synthetic_sparse(1000, 1512, 8, 42013)
+    got = echelonize(A, device="cuda")
+    want = echelonize(A, device="cpu")
+    K = kernel(got)
+    assert K.n == A.m - got.r >= 512
+    assert _same_csr(K, kernel(want))
+    assert _same_csr(K, kernel_from_rref(*rref(got)))
+    At = A.transpose()
+    for i in range(K.n):
+        x = np.zeros(K.m, np.int32)
+        c, v = K.row(i)
+        x[c] = v
+        y = np.zeros(At.m, np.int32)
+        xApy(x, At, y)
+        assert not np.any(y)
+
+
+def test_dm_and_certificate_on_config5_shapes(dev):
+    """(c) at a tenth of bench.py config 5: DM of the banded SCC instance
+    (n / 8 + 2 blocks) and the certificate of the upper-triangular one,
+    factored on the card."""
+    n = 12000
+    assert dulmage_mendelsohn(scc_banded(n, 8, 4 * n, 42013)).nb == n // 8 + 2
+    A = upper_triangular(n, 42013)
+    fact = echelonize(A, EchelonizeOptions(L=True, complete=True),
+                      device="cuda")
+    h = matrix_fingerprint(A)
+    proof = rank_certificate_create(A, h, fact)
+    assert proof.r == n and rank_certificate_verify(A, h, proof)
+
+
+def _tool(args, stdin=None):
+    return subprocess.run(
+        [sys.executable, "-m", f"spasm_tpu_torch.cli.{args[0]}"] + args[1:],
+        input=stdin, capture_output=True, timeout=600,
+        cwd=MATRIX.parent.parent)
+
+
+def test_tools_fresh_processes_on_card(dev, tmp_path):
+    """(d) on trefethen_500: rank -c certifies, check_cert accepts the
+    certificate on the matrix and refuses it on another, echelonize
+    --rref writes rref() of the CPU factorization, kernel and solve run."""
+    t500 = MATRIX / "trefethen_500.sms"
+    cert = tmp_path / "cert.txt"
+    r = _tool(["rank", "-c", "-o", str(cert)], stdin=t500.read_bytes())
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout.decode().strip() == "500"
+    assert b"CORRECT certificate" in r.stderr
+    assert _tool(["check_cert", "-c", str(cert), "--matrix",
+                  str(t500)]).returncode == 0
+    assert _tool(["check_cert", "-c", str(cert), "--matrix",
+                  str(MATRIX / "small.sms")]).returncode == 1
+    A, _ = sio.load_csr(t500, 42013)
+    want = io.StringIO()
+    sio.save_csr(rref(echelonize(A, device="cpu"))[0], want)
+    r = _tool(["echelonize", "--rref", "--matrix", str(t500)])
+    assert r.returncode == 0 and r.stdout == want.getvalue().encode()
+    sing = str(MATRIX / "singular.sms")
+    r = _tool(["kernel", "--modulus", "257", "--matrix", sing])
+    assert r.returncode == 0
+    assert sio.load_csr(io.BytesIO(r.stdout), 257)[0].n == 1
+    assert _tool(["solve", "--modulus", "257", "--rhs", sing, "--matrix",
+                  sing]).returncode == 0

@@ -233,7 +233,15 @@ def test_no_round_finisher_takes_all(name):
                  echelonize(A, EchelonizeOptions(**opts), device="cpu"))
 
 
-def test_rank_cli_certificate_raises():
-    with pytest.raises(NotImplementedError, match="certificate"):
-        rank_cli.main(["--certificate", "--matrix",
+def test_rank_cli_certificate_raises(capsys, monkeypatch):
+    """--certificate is ported: the tool certifies the rank instead of
+    raising; only --checkpoint still raises NotImplementedError."""
+    monkeypatch.setattr(rank_cli, "echelonize",
+                        functools.partial(echelonize, device="cpu"))
+    assert rank_cli.main(["--certificate", "--matrix",
+                          str(MATRIX / "u1.sms")]) == 0
+    out = capsys.readouterr()
+    assert out.out.strip() == "100" and "CORRECT certificate" in out.err
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        rank_cli.main(["--checkpoint", "ckpt", "--matrix",
                        str(MATRIX / "u1.sms")])

@@ -1,7 +1,8 @@
 """The port's vendored host modules against the JAX package's, on the
 same inputs: PRNG golden stream, SMS parsing and fingerprints, the
-structural pivot search, the matching-complex generator, and the
-no-JAX import rule.  Tolerance 0 everywhere (exact integers)."""
+structural pivot search, the matching-complex generator, the no-JAX
+import rule and the signatures of the exported consumers.  Tolerance 0 everywhere (exact integers)."""
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import spasm_tpu
 import spasm_tpu.gen as jgen
 from spasm_tpu import sio as jsio
 from spasm_tpu.pivots import find_structural_pivots as j_pivots
@@ -91,3 +93,20 @@ def test_native_builds_from_the_ports_own_source():
     B, _ = tsio.load_csr(MATRIX / "mat364.sms", 257)
     for a, b in zip(j_pivots(A), t_pivots(B)):
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+CONSUMERS = ["rref", "kernel", "kernel_from_rref", "solve", "gesv",
+             "rank_certificate_create", "rank_certificate_verify",
+             "certificate_save", "certificate_load", "factorization_verify",
+             "maximum_matching", "structural_rank", "dulmage_mendelsohn",
+             "strongly_connected_components"]
+
+
+@pytest.mark.parametrize("name", CONSUMERS)
+def test_consumers_exported_with_jax_signatures(name):
+    """Every consumer of a factorization that the JAX package exports has
+    a counterpart of the same name and signature in the port's
+    namespace."""
+    assert name in spasm_tpu_torch.__all__
+    assert (inspect.signature(getattr(spasm_tpu_torch, name))
+            == inspect.signature(getattr(spasm_tpu, name)))
