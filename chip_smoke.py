@@ -42,7 +42,7 @@ Phases, each fatal on failure (no failure is caught):
   6. the rounds, with the launch counts zeroed again: mk12.b4 with
      device_dense_width=0 (the reference-shaped round loop: round 0, its
      sparse Schur complement through the reduced basis, round 1, then
-     finish_dense and its low-rank tail), cold, warm and profiled, rank
+     finish_dense and its low-rank tail), once, with stage clocks, rank
      39535, with the pivots, sampled density and Schur nnz of each round
      and the stage clocks (pivots, density estimate, reduced basis, sparse
      Schur, finisher); its complete PLUQ (rank 39535, L and U
@@ -57,7 +57,7 @@ Phases, each fatal on failure (no failure is caught):
      14284 free columns fit the cap, then the rank finisher on int32 basis
      rows and the torch step sweep), once, with stage clocks; (b) the
      same with device_dense_width = 81920 (the rank finisher in rows mode
-     from round 0) and (c) as (b) at 65537 (d = 3), cold and warm, all
+     from round 0) and (c) as (b) at 65537 (d = 3), once each, all
      three rank 39535 (a different rank is rerun on the host to tell the
      matrix from the port); (d) the complete PLUQ of
      synthetic_sparse(16000, 16000, 8, 2^32 - 5), once, its rank equal
@@ -67,7 +67,7 @@ Phases, each fatal on failure (no failure is caught):
   8. the tools, with the launch counts zeroed again: (a) phase 5's
      PLUQ16k factors: a rank certificate created, verified (r = 15997),
      saved and loaded back, refused on A with one entry changed, and
-     gesv on B = X.A for 64 random X plus one random row (refused);
+     gesv on B = X.A for 32 random X plus one random row (refused);
      (b) the kernel basis of synthetic_sparse(16000, 16512, 8, 42013)
      (bench.py config 4's rank-deficient shape) factored on the card
      with default options (the finishers taken are printed), A.K^T = 0,
@@ -80,9 +80,26 @@ Phases, each fatal on failure (no failure is caught):
      --rref (byte-equal to rref() of phase 5's CPU factorization, as is
      rref() of a card factorization in this process), kernel, solve and
      dm -v; (e) phase 7's complete PLUQ at 2^32 - 5: the certificate
-     roundtrip and gesv on 64 rows.  Seconds of each step are printed;
+     roundtrip and gesv on 32 rows.  Seconds of each step are printed;
      B4 (RREF) and the kernels of (b)'s route must have launched;
-  9. a JSON line of the kernels (launches summed over the paths), then
+  9. checkpoint/resume, with the launch counts zeroed again: five runs
+     preempted in child processes (`chip_smoke.py --preempted CASE
+     FILE`), each killed by SIGKILL right after a save, each file then
+     resumed in this process on the card: (a) mk12.b4, default options,
+     after the PHASE_FINISH save (the rank finisher: B1, B3); (b) the
+     mk12.b4 rounds (device_dense_width=0, a save after every dense
+     block) after the first PHASE_DENSE save (finish_dense: B4 RREF),
+     with stage clocks, its qinv and U compared with phase 6's warm run;
+     (c) PLUQ16k's complete PLUQ (a save after every dense block) after
+     the first PHASE_DENSE save, resumed with the default 30 s interval
+     (B4 LU), verified; (d) mat364 (device_dense_min=0), written on the
+     CPU after its PHASE_FINISH save, resumed on the card bit-equal to
+     the uninterrupted CPU run (B2, M = 2048); (e) (a) at 2^32 - 5 after
+     its PHASE_ROUND save (B1 wide).  (c)'s child runs beside the
+     others.  Each save's wall and size, each resume's wall against the
+     uninterrupted run of phases 4-7, and each resume's launches are
+     printed; every file must be removed;
+ 10. a JSON line of the kernels (launches summed over the paths), then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -104,10 +121,10 @@ HERE = pathlib.Path(__file__).resolve().parent
 P = 42013                                   # the tools' default modulus
 MK = {"mk12.b4": (12, 4, 39535), "mk13.b5": (13, 5, 134211)}
 PLUQ16K_RANK = 15997                        # BENCH_r05.json pluq16k_rank
-# right-hand sides of (a)'s gesv: bench.py config 4 solves 1024
-# (bench.py:207), but on PLUQ16k's factors a row takes ~0.32 s on the
-# card machine's host (PERF.md section 6), so 1024 would take five minutes
-GESV_RHS = 64
+# right-hand sides of the tools' gesv: bench.py config 4 solves 1024
+# (bench.py:207), but on PLUQ16k's factors a row takes ~0.35 s on the
+# card machine's host (PERF.md section 6), so 1024 would take six minutes
+GESV_RHS = 32
 N5 = 120_000                                # bench.py config 5's rows
 DM_BLOCKS = 15002                           # BENCH_r05.json dm_blocks (seeded)
 P4 = 4294967291                             # 2^32 - 5, the top of d = 4
@@ -117,6 +134,8 @@ P3 = 65537                                  # the first int32-stored prime
 # listed for the card), NVIDIA H100 SXM
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+WALLS = {}                                  # _timed_rank's walls by label
+PROFILES = {}                               # and its stage clocks
 
 
 def log(msg: str) -> None:
@@ -447,6 +466,8 @@ def _timed_rank(A, want: int, label: str, opts=None):
     fact = echelonize(A, opts, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
+    WALLS[label] = wall
+    PROFILES[label] = dict(fact.profile)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if want is not None and fact.r != want:
         sys.exit(f"chip_smoke: {label} rank {fact.r} != {want}")
@@ -620,7 +641,7 @@ def rounds_phase(mats) -> dict:
     """The reference-shaped round loop, with the launch counts zeroed
     first: mk12.b4 at device_dense_width=0 (round 0, its sparse Schur
     complement through the reduced basis and B1, round 1, finish_dense
-    with B4 in RREF mode and its low-rank tail), cold, warm and profiled;
+    with B4 in RREF mode and its low-rank tail), once, with stage clocks;
     mk12.b4's complete PLUQ (the L-mode Schur complement through the
     UEliminator, round 1, finish_dense with B4 in LU mode), verified; and
     mk10.b3 at device_dense_width=0 through the native GPLU finisher,
@@ -652,16 +673,19 @@ def rounds_phase(mats) -> dict:
     ReducedBasis.build, native.gplu = counted_build, counted_gplu
 
     _cuda.reset_launches()
-    for run in ("cold", "warm"):
-        fact = _timed_rank(B, want, f"mk12.b4 rounds {run} "
-                           "(device_dense_width=0)", w0)
-        _round_lines(fact)
+    # one run (the checkpoint phase runs the rounds twice more)
     os.environ["SPASM_PROFILE_FINISH"] = "1"
-    fact = _timed_rank(B, want, "mk12.b4 rounds profiled (stage clocks "
-                       "synchronize)", w0)
+    fact, taken = _finishers_taken(lambda: _timed_rank(
+        B, want, "mk12.b4 rounds profiled (stage clocks synchronize)", w0))
     del os.environ["SPASM_PROFILE_FINISH"]
+    _round_lines(fact)
     log("mk12.b4 rounds stages (s): " + json.dumps(
-        {k: round(v, 4) for k, v in fact.profile.items()}))
+        {k: round(v, 4) for k, v in fact.profile.items()})
+        + f"; finishers taken: {taken}")
+    t0 = time.time()
+    rounds_ref = (fact.qinv, fact.U)       # the checkpoint phase's (b)
+    log(f"  its U: {rounds_ref[1].nnz} nnz, materialized in "
+        f"{time.time() - t0:.1f} s")
     rb_builds = builds[0]
     fact = _timed_rank(B, want, "mk12.b4 complete PLUQ",
                        EchelonizeOptions(complete=True))
@@ -691,11 +715,11 @@ def rounds_phase(mats) -> dict:
     counts = dict(_cuda.launches)
     _launched(counts, ("B1", "B4 rref", "B4 lu"), "the rounds")
     log(f"the rounds: B1 {counts['B1']} launches over {builds[0]} "
-        f"reduced-basis builds ({rb_builds} in the three mk12.b4 rank runs)")
-    if counts["B1"] != builds[0] or rb_builds != 3:
+        f"reduced-basis builds ({rb_builds} in the mk12.b4 rank run)")
+    if counts["B1"] != builds[0] or rb_builds != 1:
         sys.exit("chip_smoke: B1 did not launch exactly once per "
                  "reduced-basis build on the rounds")
-    return counts
+    return counts, rounds_ref
 
 
 def _wide_rank(A, want: int, label: str, opts):
@@ -750,13 +774,12 @@ def wide_phase(mats) -> dict:
         {k: round(v, 4) for k, v in fact.profile.items()}))
     if len(fact.rounds) < 2 or "schur_nnz" not in fact.rounds[0]:
         sys.exit("chip_smoke: (a) did not take the sparse Schur rounds")
-    # (b), (c): the rank finisher in rows mode on int32 basis rows
+    # (b), (c): the rank finisher in rows mode on int32 basis rows; one
+    # run each, to leave time for the checkpoint phase
     rows_mode = EchelonizeOptions(device_dense_width=4 * 20480)
     for case, p in (("b", P4), ("c", P3)):
-        for run in ("cold", "warm"):
-            fact = _wide_rank(over[p], want, f"mk12.b4 at p = {p} ({case}: "
-                              "device_dense_width=81920, rows mode) "
-                              f"{run}", rows_mode)
+        fact = _wide_rank(over[p], want, f"mk12.b4 at p = {p} ({case}: "
+                          "device_dense_width=81920, rows mode)", rows_mode)
         _round_lines(fact)
         if fact.rounds[-1].get("schur_nnz") is not None:
             sys.exit(f"chip_smoke: ({case}) took a sparse Schur round")
@@ -1029,7 +1052,8 @@ def tools_phase(pluq16k, tref, wide16k) -> dict:
     # (e) d = 4: phase 7's complete PLUQ at 2^32 - 5, factors on the host
     Aw4, fw4 = wide16k
     _certificate_roundtrip(Aw4, fw4, f"(e) PLUQ16k at p = {P4}")
-    _gesv_check(Aw4, fw4, 64, f"(e) PLUQ16k at p = {P4}", outside=False)
+    _gesv_check(Aw4, fw4, GESV_RHS, f"(e) PLUQ16k at p = {P4}",
+                outside=False)
 
     counts = dict(_cuda.launches)
     keys = ["B4 rref"] + (["B1", "B3"] if "finish_device_dense" in taken
@@ -1039,7 +1063,215 @@ def tools_phase(pluq16k, tref, wide16k) -> dict:
     return counts
 
 
-def main() -> int:
+PHASE_NAMES = ("PHASE_ROUND", "PHASE_FINISH", "PHASE_DENSE")
+# the uninterrupted card runs of phases 4-7 that each resumed case
+# compares its wall with
+UNINTERRUPTED = {
+    "a": "mk12.b4 warm",
+    "b": "mk12.b4 rounds profiled (stage clocks synchronize)",
+    "c": "PLUQ16k complete PLUQ warm",
+    "d": "(d) uninterrupted on the card",
+    "e": f"mk12.b4 at p = {P4} (a: default options, the rounds; stage "
+         "clocks synchronize)"}
+# the kernels each resume must launch
+RESUME_KERNELS = {"a": ("B1", "B3"), "b": ("B4 rref",), "c": ("B4 lu",),
+                  "d": ("B2",), "e": ("B1 wide",)}
+
+
+def _ckpt_case(case: str, path: str):
+    """One preempted run of the checkpoint phase: (A, options, the device
+    the preempted child runs on, the phase whose first save ends it, the
+    rank wanted).  The matrix is made anew in each process.  (b) and (c)
+    save after every dense block (checkpoint_interval_s=0): (c) resumes
+    with the default interval (see checkpoint_phase)."""
+    from spasm_tpu_torch import EchelonizeOptions, sio
+    from spasm_tpu_torch import checkpoint as ckpt
+    from spasm_tpu_torch.csr import CSR
+    from spasm_tpu_torch.field import Field
+    from spasm_tpu_torch.gen import matching_complex_boundary, synthetic_sparse
+    ck = dict(checkpoint_file=path)
+    if case == "c":
+        return (synthetic_sparse(16000, 16000, 8, P),
+                EchelonizeOptions(complete=True, checkpoint_interval_s=0.0,
+                                  **ck), "cuda", ckpt.PHASE_DENSE,
+                PLUQ16K_RANK)
+    if case == "d":
+        A, _ = sio.load_csr(HERE / "tests" / "Matrix" / "mat364.sms", P)
+        return (A, EchelonizeOptions(device_dense_min=0, **ck), "cpu",
+                ckpt.PHASE_FINISH, 364)
+    B = matching_complex_boundary(12, 4)
+    if B.n < B.m:                            # the rank tool's orientation
+        B = B.transpose()
+    want = MK["mk12.b4"][2]
+    if case == "b":
+        return (B, EchelonizeOptions(device_dense_width=0,
+                                     checkpoint_interval_s=0.0, **ck),
+                "cuda", ckpt.PHASE_DENSE, want)
+    if case == "e":
+        return (CSR(B.n, B.m, Field(P4), B.indptr, B.indices, B.data),
+                EchelonizeOptions(**ck), "cuda", ckpt.PHASE_ROUND, want)
+    return B, EchelonizeOptions(**ck), "cuda", ckpt.PHASE_FINISH, want
+
+
+def preempted_child(case: str, path: str) -> None:
+    """A preempted run of the checkpoint phase, in a process of its own
+    (`chip_smoke.py --preempted CASE FILE`): the case's echelonize, each
+    save printed as one JSON line, and the process killed by SIGKILL
+    right after the first save of the case's kill phase."""
+    import signal
+    sys.path.insert(0, str(HERE))
+    from spasm_tpu_torch import echelonize
+    from spasm_tpu_torch import checkpoint as ckpt
+    logging.getLogger("spasm_tpu_torch").setLevel(logging.WARNING)
+    A, opts, device, kill_at, _ = _ckpt_case(case, path)
+    real = ckpt.save_checkpoint
+    t_run = time.time()
+    saves = []
+
+    def save(file, **kw):
+        t0 = time.time()
+        real(file, **kw)
+        saves.append(kw["phase"])
+        print(json.dumps({"save": len(saves), "phase": kw["phase"],
+                          "wall_s": time.time() - t0,
+                          "bytes": os.path.getsize(file),
+                          "run_s": time.time() - t_run}), flush=True)
+        if kw["phase"] == kill_at:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    ckpt.save_checkpoint = save
+    echelonize(A, opts, device=device)
+    sys.exit(f"chip_smoke: ({case}) ended without a {PHASE_NAMES[kill_at]} "
+             f"save (saves: {saves})")
+
+
+def _saves_line(saves) -> str:
+    return "; ".join(f"{PHASE_NAMES[ph]} {wall:.3f} s, {size / 1e6:.1f} MB"
+                     for ph, wall, size in saves) or "none"
+
+
+def checkpoint_phase(rounds_ref) -> dict:
+    """Checkpoint/resume, with the launch counts zeroed first (see the
+    module docstring, phase 9).  rounds_ref: (qinv, U) of phase 6's warm
+    mk12.b4 rounds run."""
+    import dataclasses
+    import signal
+    import tempfile
+    from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize
+    from spasm_tpu_torch import checkpoint as ckpt
+    from spasm_tpu_torch.certificate import factorization_verify
+    t_phase = time.time()
+    real = ckpt.save_checkpoint
+    work = HERE / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    _cuda.reset_launches()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        def start(case):
+            path = os.path.join(tmp, f"{case}.ck")
+            errf = open(path + ".err", "w+")
+            return path, time.time(), errf, subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--preempted",
+                 case, path], cwd=HERE, stdout=subprocess.PIPE,
+                stderr=errf, text=True)
+
+        # (c)'s child saves for about a minute on one host core: it runs
+        # beside (a), (b), (d) and (e), which run one after another
+        children = {"c": start("c")}
+        for case in "abdec":
+            path, t0, errf, proc = children.pop(case, None) or start(case)
+            out, _ = proc.communicate(timeout=900)
+            t_child = time.time() - t0
+            errf.seek(0)
+            err = errf.read()
+            errf.close()
+            A, opts, child_dev, kill_at, want = _ckpt_case(case, path)
+            if proc.returncode != -signal.SIGKILL or \
+                    not os.path.exists(path):
+                sys.exit(f"chip_smoke: ({case}) preempted child exited "
+                         f"{proc.returncode}, file present "
+                         f"{os.path.exists(path)}:\n" + err[-3000:])
+            child = [json.loads(ln) for ln in out.splitlines()
+                     if ln.startswith("{")]
+            log(f"({case}) child on {child_dev}, SIGKILL after its "
+                f"{PHASE_NAMES[kill_at]} save ({child[-1]['run_s']:.1f} s "
+                f"into the run, process {t_child:.1f} s"
+                + (", beside (a), (b), (d) and (e)" if case == "c" else "")
+                + f"), {len(child)} saves: " + _saves_line(
+                    [(c["phase"], c["wall_s"], c["bytes"]) for c in child]))
+            if case == "c":
+                # a save of PLUQ16k's U + L takes one to two minutes
+                # (PERF.md): the resume keeps the default interval
+                opts = dataclasses.replace(
+                    opts, checkpoint_interval_s=EchelonizeOptions
+                    .checkpoint_interval_s)
+            if case == "b":
+                os.environ["SPASM_PROFILE_FINISH"] = "1"
+            resumed = []
+
+            def timed(file, **kw):
+                t1 = time.time()
+                real(file, **kw)
+                resumed.append((kw["phase"], time.time() - t1,
+                                os.path.getsize(file)))
+
+            ckpt.save_checkpoint = timed
+            before = dict(_cuda.launches)
+            label = f"({case}) resumed on the card"
+            fact, taken = _finishers_taken(
+                lambda: _timed_rank(A, want, label, opts))
+            ckpt.save_checkpoint = real
+            os.environ.pop("SPASM_PROFILE_FINISH", None)
+            if os.path.exists(path):
+                sys.exit(f"chip_smoke: ({case}) the file was not removed")
+            missing = [k for k in RESUME_KERNELS[case]
+                       if _cuda.launches[k] == before[k]]
+            if missing:
+                sys.exit(f"chip_smoke: ({case}) the resume never launched "
+                         f"{missing}")
+            if case == "d":
+                plain = dataclasses.replace(opts, checkpoint_file=None)
+                if not _same_U(fact, echelonize(A, plain, device="cpu")):
+                    sys.exit("chip_smoke: (d) the resume on the card differs "
+                             "from the uninterrupted CPU run")
+                log("  (d) qinv and U bit-equal to the uninterrupted CPU "
+                    "run")
+                _timed_rank(A, want, UNINTERRUPTED["d"], plain)
+            log(f"  ({case}) file removed; resume {len(resumed)} saves: "
+                f"{_saves_line(resumed)}; resume wall {WALLS[label]:.3f} s, "
+                f"uninterrupted {WALLS[UNINTERRUPTED[case]]:.3f} s")
+            if case == "b":
+                for what, lab in (("resume", label),
+                                  ("uninterrupted", UNINTERRUPTED["b"])):
+                    log(f"  (b) {what} stages (s): " + json.dumps(
+                        {k: round(v, 4) for k, v in PROFILES[lab].items()}))
+                log(f"  (b) resume's finishers taken: {taken}")
+                same = (np.array_equal(fact.qinv, rounds_ref[0])
+                        and _same_csr(fact.U, rounds_ref[1]))
+                log(f"  (b) qinv and U equal to phase 6's uninterrupted "
+                    f"card run: {same}")
+            if case == "c":
+                t0 = time.time()
+                U, L = fact.U, fact.L
+                t_mat = time.time() - t0
+                t0 = time.time()
+                ok = factorization_verify(A, fact, 42)
+                log(f"  (c) U {U.nnz} nnz, L {L.nnz} nnz, materialized in "
+                    f"{t_mat:.1f} s; factorization_verify {ok} "
+                    f"({time.time() - t0:.1f} s)")
+                if not ok:
+                    sys.exit("chip_smoke: (c) fails factorization_verify")
+                del U, L
+            del fact
+    counts = dict(_cuda.launches)
+    _launched(counts, ("B1", "B1 wide", "B2", "B3", "B4 rref", "B4 lu"),
+              "checkpoint/resume")
+    log(f"checkpoint/resume: {time.time() - t_phase:.1f} s in all")
+    return counts
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--preempted"]:
+        preempted_child(*argv[1:3])
     t0 = time.time()
     kind = device_phase()
     sys.path.insert(0, str(HERE))
@@ -1049,15 +1281,17 @@ def main() -> int:
     kernels = kernel_phase(mats)
     counts = rank_path_phase(mats)
     counts4, pluq16k, tref = dense_finisher_phase()
-    counts5 = rounds_phase(mats)
+    counts5, rounds_ref = rounds_phase(mats)
     counts6, wide16k = wide_phase(mats)
     counts7 = tools_phase(pluq16k, tref, wide16k)
+    del pluq16k, wide16k
+    counts8 = checkpoint_phase(rounds_ref)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "spasm_tpu"))
     if leaked:
         sys.exit(f"chip_smoke: JAX modules were imported: {leaked[:5]}")
-    # launches: the sum over the paths (phases 4-8)
-    paths = (counts, counts4, counts5, counts6, counts7)
+    # launches: the sum over the paths (phases 4-9)
+    paths = (counts, counts4, counts5, counts6, counts7, counts8)
     for k, keys in (("B1", ["B1"]), ("B1 wide", ["B1 wide"]), ("B2", ["B2"]),
                     ("B3", ["B3"]), ("B4", ["B4 rref", "B4 lu"])):
         kernels[k]["launches"] = sum(c[key] for c in paths for key in keys)
@@ -1070,4 +1304,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,8 +13,9 @@ factorization's consumers on the host: `rref`, `kernel` /
 `kernel_from_rref`, `solve` / `gesv`, rank certificates (create, verify,
 save, load) and `factorization_verify`, `maximum_matching` /
 `structural_rank`, `dulmage_mendelsohn` / `strongly_connected_components`;
-and the ten CLI tools (`python -m spasm_tpu_torch.cli.rank`, see cli/).
-Only checkpoints raise NotImplementedError, naming their ROADMAP item.
+and the ten CLI tools (`python -m spasm_tpu_torch.cli.rank`, see cli/);
+checkpoint/resume of the engine (`EchelonizeOptions(checkpoint_file=F)`,
+`--checkpoint F`), its files interchangeable with the JAX package's.
 
 Layout: the host modules (field, csr, hashing, sio, gen, pivots, spmv,
 triangular, rref, kernel, solve, certificate, matching, dm and the native

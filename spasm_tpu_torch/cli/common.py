@@ -50,7 +50,8 @@ def add_echelonize_args(ap: argparse.ArgumentParser):
                    help="Low-rank mode when #rows/#cols >= R")
     g = ap.add_argument_group("Fault tolerance")
     g.add_argument("--checkpoint", metavar="FILE", default=None,
-                   help="Snapshot engine state to FILE (not ported yet)")
+                   help="Snapshot engine state to FILE after every round "
+                        "and dense block; resume from it if present")
     g = ap.add_argument_group("Observability")
     g.add_argument("--profile", metavar="DIR", default=None,
                    help="Capture a torch.profiler trace into DIR")

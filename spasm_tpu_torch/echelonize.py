@@ -20,8 +20,11 @@ runs on `device` (default "cuda"):
   * `finish_gplu`: the sparse Gilbert-Peierls finisher on the host
     (native C++, or its Python twin), with the same early abort.
 
-Every odd prime p <= 2^32 - 5 runs (the digit tiers of dense/modp.py);
-checkpoint files raise NotImplementedError naming their ROADMAP item.
+Every odd prime p <= 2^32 - 5 runs (the digit tiers of dense/modp.py).
+With `checkpoint_file` set, the engine snapshots its state after every
+round, at the finisher's entry and (throttled) after dense-finisher
+blocks, and a later call on the same input resumes from the file
+(checkpoint.py; the files are the JAX package's).
 """
 from __future__ import annotations
 
@@ -64,9 +67,7 @@ if not log.handlers:
 class EchelonizeOptions:
     """Mirror of struct echelonize_opts (spasm.h:84-108) with the
     reference defaults (spasm_echelonize.c:9-28), plus the device
-    finisher's knobs of the JAX package.  Only fields that ported code
-    reads are kept (checkpoint_interval_s waits for checkpoints), so
-    setting an unported one is an error rather than silently ignored."""
+    finisher's and the checkpoints' knobs of the JAX package."""
     enable_greedy_pivot_search: bool = True
     enable_tall_and_skinny: bool = True
     enable_dense: bool = True
@@ -97,9 +98,13 @@ class EchelonizeOptions:
     # device memory budget (bytes) of the finisher's state: R plus the
     # finisher basis
     device_dense_mem: int = 10 << 30
-    # checkpoint/resume is not ported (ROADMAP: checkpoints and
-    # multi-GPU): a set checkpoint_file raises
+    # checkpoint/resume: when set, the engine snapshots its state to
+    # this file after every round and after dense-finisher blocks; a
+    # call with the same input resumes from it.  Removed on completion.
     checkpoint_file: Optional[str] = None
+    # minimum seconds between dense-finisher snapshots (each save repacks
+    # U + S, O(nnz)); round-boundary snapshots are never throttled
+    checkpoint_interval_s: float = 30.0
 
 
 # L-mode dense blocks of at least this many elements (rows x free
@@ -112,10 +117,6 @@ _SCHUR_BLOCK = 8192
 # finish_dense's element budget per block: the device Schur block is a
 # transient full-width (rows, m) array, so rows = budget // m
 _DENSE_ELEM_BUDGET = 64 << 20
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
 
 class _LBuilder:
@@ -407,8 +408,9 @@ class LU:
         self.complete = complete
         # stage wall clocks (seconds) when SPASM_PROFILE_FINISH=1
         self.profile: dict = {}
-        # one dict per round: structural pivots, sampled Schur density,
-        # nnz of the sparse Schur complement (the keys a round reached)
+        # one dict per round this call ran (a resumed call starts at the
+        # file's round): structural pivots, sampled Schur density, nnz
+        # of the sparse Schur complement (the keys a round reached)
         self.rounds: List[dict] = []
 
     @property
@@ -733,18 +735,20 @@ class _Engine:
         return time.time()
 
     @annotate("finish_dense")
-    def finish_dense(self, S: CSR, p: np.ndarray, n: int, p_in):
+    def finish_dense(self, S: CSR, p: np.ndarray, n: int, p_in,
+                     checkpoint_cb=None, processed: int = 0):
         """Blocked dense finisher (echelonize_dense,
         spasm_echelonize.c:385-463): blocks of rows become dense Schur
         blocks on the device, then RREF (no L) or LU (L mode) there;
         L-mode blocks under _DEVICE_LU_MIN elements take the host sweep.
-        Stage clocks: see _stage."""
+        checkpoint_cb(processed) runs after each block; a resume passes
+        the saved `processed` and starts at that row.  Stage clocks: see
+        _stage."""
         opts = self.opts
         dev = self.device
         t0 = time.time()
         old_un = self.U.n
         lowrank_mode = False
-        processed = 0
         while True:
             # the device Schur block is a transient full-width (B, m)
             # array: the budget divides by m, not by the free columns
@@ -783,6 +787,12 @@ class _Engine:
                 self._stage("register", ts)
             processed += Sn
             log.info("[dense] block of %d rows: %d new pivots", Sn, rr)
+            if checkpoint_cb is not None:
+                # the snapshot does not record this block's low-rank test
+                # below: a resume at `processed` goes on with full blocks
+                # even where this block would have switched to low-rank
+                # mode (as in the JAX package, whose files these are)
+                checkpoint_cb(processed)
             if opts.enable_tall_and_skinny and rr < opts.low_rank_ratio * Sn:
                 lowrank_mode = True
                 break
@@ -1140,8 +1150,6 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
         opts.L = True
     if opts.L:
         opts.enable_tall_and_skinny = False
-    if opts.checkpoint_file:
-        _not_ported("checkpoint_file", "checkpoints and multi-GPU")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         # small L-mode inputs never touch the device: fail here rather
@@ -1158,14 +1166,50 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
     npiv = 0
     p = np.arange(n, dtype=np.int64)
     status = 0
+    rnd = 0
     density = A.nnz / max(n * m, 1)
+
+    # checkpoint/resume: a file of this input and these options resumes
+    # the round loop at its round, or the finishers at their entry
+    ckfile = opts.checkpoint_file
+    fp = eng.fingerprint if ckfile else None
+    resume_phase = None
+    dense_processed = 0
+    if ckfile:
+        state = ckpt.load_checkpoint(ckfile, fp, A.prime, opts.L,
+                                     opts.complete)
+        if state is not None:
+            ckpt.restore_engine(eng, state)
+            S = ckpt.restored_S(state, A.prime)
+            p_in = state.get("p_in")
+            rnd = int(state["rnd"])
+            density = float(state["density"])
+            status = int(state["status"])
+            resume_phase = int(state["phase"])
+            npiv = int(state["npiv"])
+            p = state["p"] if "p" in state \
+                else np.arange(S.n, dtype=np.int64)
+            dense_processed = int(state["processed"])
+            log.info("[checkpoint] resumed from %s: phase=%d rnd=%d "
+                     "rank=%d", ckfile, resume_phase, rnd, eng.U.n)
+
+    def save(phase_, **kw):
+        """One snapshot of the current loop state, timed as stage
+        `checkpoint`."""
+        ts = time.time()
+        ckpt.save_checkpoint(ckfile, fingerprint=fp, engine=eng, S=S,
+                             p_in=p_in, rnd=rnd, phase=phase_,
+                             density=density, **kw)
+        eng._stage("checkpoint", ts)
+
+    in_finisher = resume_phase in (ckpt.PHASE_FINISH, ckpt.PHASE_DENSE)
     # bytes per element of the reduced basis and the finisher's blocks
     # (int16 while p <= 65535); the wider tiers get a quarter of the
     # width, as in the JAX package on one device
     itemsize = 2 if A.prime <= 65535 else 4
     wcap = opts.device_dense_width if itemsize == 2 \
         else opts.device_dense_width // 4
-    for rnd in range(opts.max_round):
+    while not in_finisher and rnd < opts.max_round:
         if S.nnz == 0:
             status = 1
             break
@@ -1226,9 +1270,27 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
                  rnd, S.n, m, S.nnz)
         npiv = 0
         p = np.arange(S.n, dtype=np.int64)
+        rnd += 1
+        if ckfile:
+            save(ckpt.PHASE_ROUND)
 
     if status != 1:
         nrem = S.n - npiv
+        if ckfile and not in_finisher:
+            save(ckpt.PHASE_FINISH, p=p, npiv=npiv, status=status)
+        # a save repacks U + S (O(nnz)); per dense block that can dominate
+        # the finisher, so one save per interval at most (a resume redoes
+        # the blocks after the last save)
+        last_save = [time.time()]
+
+        def dense_cb(processed):
+            if time.time() - last_save[0] < opts.checkpoint_interval_s:
+                return
+            save(ckpt.PHASE_DENSE, p=p, npiv=npiv, status=status,
+                 processed=processed)
+            last_save[0] = time.time()
+
+        cb = dense_cb if ckfile else None
         aspect = nrem / max(m - eng.U.n, 1)
         log.info("[echelonize] finishing; density=%.3f aspect=%.1f",
                  density, aspect)
@@ -1244,19 +1306,26 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
                      or (opts.enable_tall_and_skinny
                          and aspect > opts.tall_and_skinny_ratio))))
         ts = time.time()
-        if use_device_finish:
+        if resume_phase == ckpt.PHASE_DENSE:
+            # back into the blocked dense finisher where the file left it
+            eng.finish_dense(S, p[npiv:], nrem, p_in, checkpoint_cb=cb,
+                             processed=dense_processed)
+        elif use_device_finish:
             eng.finish_device_dense(S, p[npiv:], nrem)
         elif (opts.enable_tall_and_skinny
                 and aspect > opts.tall_and_skinny_ratio):
             eng.finish_dense_lowrank(S, p[npiv:], nrem)
         elif opts.enable_dense and density > opts.sparsity_threshold:
-            eng.finish_dense(S, p[npiv:], nrem, p_in)
+            eng.finish_dense(S, p[npiv:], nrem, p_in, checkpoint_cb=cb)
         elif opts.enable_GPLU:
             eng.finish_gplu(S, p[npiv:], nrem, p_in)
         else:
             log.info("[echelonize] no finisher enabled; "
                      "incomplete echelonization returned")
         eng._stage("finisher", ts)
+
+    if ckfile and os.path.exists(ckfile):
+        os.unlink(ckfile)
 
     r = eng.U.n
     fact = LU(r, None, eng.U.qinv.copy(), u_thunk=eng.U.snapshot_csr)

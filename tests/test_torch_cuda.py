@@ -360,6 +360,54 @@ def test_echelonize_card_matches_cpu(dev, name):
     assert np.array_equal(Ug.data[:Ug.nnz], Uw.data[:Uw.nnz])
 
 
+@pytest.mark.parametrize("name,opts,key", [
+    ("trefethen_500.sms", dict(device_dense_min=0), "B2"),
+    ("trefethen_2000.sms", dict(complete=True), "B4 lu")])
+def test_cpu_checkpoint_resumes_on_card(dev, name, opts, key, tmp_path):
+    """A file written by a CPU run preempted after its first save
+    (PHASE_FINISH) resumes on the card bit-equal to the uninterrupted
+    CPU run: trefethen_500 through the device finisher (B2 sweeps), and
+    trefethen_2000's complete PLUQ through finish_dense (B4 LU); the
+    restored chunk basis is composed on the card."""
+    from spasm_tpu_torch import checkpoint as ckpt
+    from spasm_tpu_torch.echelonize import _Engine
+    A, _ = sio.load_csr(MATRIX / name, 42013)
+    want = echelonize(A, EchelonizeOptions(**opts), device="cpu")
+    ckfile = str(tmp_path / "cpu.ck")
+    ck = EchelonizeOptions(checkpoint_file=ckfile, **opts)
+    real = ckpt.save_checkpoint
+
+    class Preempt(Exception):
+        pass
+
+    def preempted(*a, **kw):
+        real(*a, **kw)
+        raise Preempt
+
+    ckpt.save_checkpoint = preempted
+    try:
+        with pytest.raises(Preempt):
+            echelonize(A, ck, device="cpu")
+    finally:
+        ckpt.save_checkpoint = real
+    state = ckpt.load_checkpoint(ckfile, ckpt.matrix_fingerprint(A),
+                                 A.prime, ck.complete, ck.complete)
+    assert int(state["phase"]) == ckpt.PHASE_FINISH
+    eng = _Engine(A, EchelonizeOptions(L=ck.complete, **opts), dev)
+    ckpt.restore_engine(eng, state)
+    eng.elim.flush()
+    assert all(t.device.type == "cuda" for run in eng.elim.runs
+               for t in run if isinstance(t, torch.Tensor))
+    before = _cuda.launches[key]
+    got = echelonize(A, ck, device="cuda")
+    assert _cuda.launches[key] > before
+    assert not pathlib.Path(ckfile).exists()
+    assert got.r == want.r and np.array_equal(got.qinv, want.qinv)
+    assert _same_csr(got.U, want.U)
+    if ck.complete:
+        assert np.array_equal(got.p, want.p) and _same_csr(got.L, want.L)
+
+
 @pytest.mark.parametrize("p", [257, 42013, 65269, 65537, 4294967291])
 def test_densify_card_matches_cpu(dev, p):
     """DeviceCSR.densify on the card against the CPU: duplicate entries,

@@ -22,6 +22,7 @@ from spasm_tpu.csr import CSR as JCSR
 from spasm_tpu.gen import matching_complex_boundary as jmcb
 
 from spasm_tpu_torch import CSR, EchelonizeOptions, echelonize, sio
+from spasm_tpu_torch import checkpoint as ckpt
 from spasm_tpu_torch.cli import rank as rank_cli
 from spasm_tpu_torch.gen import matching_complex_boundary as mcb
 from spasm_tpu_torch.triangular import sparse_triangular_solve
@@ -135,15 +136,6 @@ def test_tall_input_lowrank_and_completion(monkeypatch, caplog):
     _same_factor(jechelonize(JCSR.from_dense(D, p), JOpts(**DEVICE_MIN0)), t)
 
 
-@pytest.mark.parametrize("name,opts,match", [
-    ("mat364.sms", dict(checkpoint_file="ck.npz"), "checkpoints"),
-])
-def test_outside_the_slice_raises(name, opts, match):
-    A, _ = sio.load_csr(MATRIX / name, 42013)
-    with pytest.raises(NotImplementedError, match=match):
-        echelonize(A, EchelonizeOptions(**opts), device="cpu")
-
-
 @pytest.mark.parametrize("opts", [dict(L=True), dict(complete=True)])
 def test_l_mode_matches_jax(opts):
     """L-mode on mat364: the host L block of finish_dense; rank, qinv, U,
@@ -233,15 +225,36 @@ def test_no_round_finisher_takes_all(name):
                  echelonize(A, EchelonizeOptions(**opts), device="cpu"))
 
 
-def test_rank_cli_certificate_raises(capsys, monkeypatch):
-    """--certificate is ported: the tool certifies the rank instead of
-    raising; only --checkpoint still raises NotImplementedError."""
+def test_rank_cli_certificate_and_checkpoint(capsys, caplog, monkeypatch,
+                                             tmp_path):
+    """--certificate is ported: the tool certifies the rank.  And
+    --checkpoint: a run preempted right after its first snapshot
+    resumes from the file, prints the uninterrupted run's output and
+    removes the file."""
     monkeypatch.setattr(rank_cli, "echelonize",
                         functools.partial(echelonize, device="cpu"))
     assert rank_cli.main(["--certificate", "--matrix",
                           str(MATRIX / "u1.sms")]) == 0
     out = capsys.readouterr()
     assert out.out.strip() == "100" and "CORRECT certificate" in out.err
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        rank_cli.main(["--checkpoint", "ckpt", "--matrix",
-                       str(MATRIX / "u1.sms")])
+    argv = ["--matrix", str(MATRIX / "mat364.sms")]
+    assert rank_cli.main(argv) == 0
+    want = capsys.readouterr().out
+    ckfile = tmp_path / "ckpt"
+    real = ckpt.save_checkpoint
+
+    def preempted(*a, **kw):
+        real(*a, **kw)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(ckpt, "save_checkpoint", preempted)
+    with pytest.raises(KeyboardInterrupt):
+        rank_cli.main(argv + ["--checkpoint", str(ckfile)])
+    assert ckfile.exists()
+    capsys.readouterr()
+    monkeypatch.setattr(ckpt, "save_checkpoint", real)
+    with caplog.at_level("INFO", logger="spasm_tpu_torch"):
+        assert rank_cli.main(argv + ["--checkpoint", str(ckfile)]) == 0
+    assert capsys.readouterr().out == want == "364\n"
+    assert "[checkpoint] resumed" in caplog.text
+    assert not ckfile.exists()
