@@ -99,7 +99,32 @@ Phases, each fatal on failure (no failure is caught):
      others.  Each save's wall and size, each resume's wall against the
      uninterrupted run of phases 4-7, and each resume's launches are
      printed; every file must be removed;
- 10. a JSON line of the kernels (launches summed over the paths), then
+ 10. the mesh (spasm_tpu_torch/parallel/), with the launch counts and
+     the mesh's site counters zeroed again: mesh A, make_mesh(devices=
+     [cuda:0] * 4), (2, 2) on one card (and, where two or more cards
+     exist, mesh B = make_mesh() over them; otherwise the script says it
+     is not run).  First B1 at a column shard's shape (mk12.b4's own
+     schedule, M / 2) against its plain version, and R built under mesh
+     A bit-equal to the single-card R and to the plain wave loop's.
+     Then, under each mesh, bit-equal to the same call's single-card run
+     (phases 4-6 where they kept it, else run once here): (a) mk12.b4,
+     default options (the rank finisher, B1 once per column shard, B3);
+     (b) the same with device_dense_width=12288: 20107 free columns pass
+     one card's cap but not cap x cols, so the SP axis alone lets the
+     rank finisher in (a spy shows it), same factorization as (a); (c)
+     trefethen_2000 (column-sharded finish_dense RREF, B4 RREF on the
+     owner shards); (d) PLUQ16k's complete PLUQ (row-sharded Schur
+     blocks, column-sharded LU, B4 LU), verified; (e) trefethen_2000 at
+     2^32 - 5 (panel_steps); (f) mk10.b3's complete PLUQ (the sparse
+     Schur round's device branch: DeviceCSR.densify row-sharded),
+     verified; (g) the mk12.b4 rounds (device_dense_width=0: the
+     reduced-basis Schur round, finish_dense, the low-rank tail with
+     pad_block).  B1 must launch cols times per build, B3 and B4 in both
+     modes, and every mesh site 1-7 must count a call; each run's wall
+     beside the single card's, its peak device memory and moved bytes,
+     and the calls and bytes per site, are printed; then mk12.b4 on 1, 2
+     and 4 x cuda:0, the cost of sharding on one card (not scaling);
+ 11. a JSON line of the kernels (launches summed over the paths), then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -298,11 +323,12 @@ def b1_line(label, R0, waves, reps: int, p: int = P) -> dict:
     return dict(rec, ms=ms, plain_ms=plain_ms)
 
 
-def b1_real_schedule(A, tag: str, opts, p: int = P) -> dict:
+def b1_real_schedule(A, tag: str, opts, p: int = P, shards: int = 1) -> dict:
     """B1 on the schedule that round 0 of echelonize(A, opts) builds: its
     structural pivots, the reduced basis's waves (`subst_schedule`), R
     of the basis's shape and storage for p filled with seeded balanced
-    values."""
+    values; with shards > 1, one column shard of that R (M / shards
+    columns, the shape each shard of a mesh's 'cols' axis gives B1)."""
     from spasm_tpu_torch.csr import CSR
     from spasm_tpu_torch.dense.reduced import ReducedBasis, subst_schedule
     from spasm_tpu_torch.echelonize import _Engine
@@ -320,11 +346,12 @@ def b1_real_schedule(A, tag: str, opts, p: int = P) -> dict:
                            rb.npad)
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
-    R0 = torch.randint(-(p // 2), p // 2 + 1, (rb.npad, rb.M),
+    R0 = torch.randint(-(p // 2), p // 2 + 1, (rb.npad, rb.M // shards),
                        dtype=rb.dtype, device=dev, generator=gen)
     R0[-1] = 0
-    rec = b1_line(f"on {tag}'s own schedule (R {rb.npad} x {rb.M})", R0,
-                  waves, 3, p)
+    rec = b1_line(f"on {tag}'s own schedule (R {rb.npad} x {rb.M}"
+                  + (f", one of {shards} column shards" if shards > 1
+                     else "") + ")", R0, waves, 3, p)
     del R0
     torch.cuda.empty_cache()
     return rec
@@ -536,7 +563,10 @@ def rank_path_phase(mats) -> dict:
     for tag, (_, _, want) in MK.items():
         for run in ("cold", "warm"):
             hist.zero_()
-            _timed_rank(mats[tag], want, f"{tag} {run}")
+            fact = _timed_rank(mats[tag], want, f"{tag} {run}")
+            if tag == "mk12.b4" and run == "warm":
+                mk12 = fact                # phase 10's single-card run
+                mk12.U                     # on the host: frees the card
         h = hist.cpu().tolist()
         log(f"{tag}: B3 sweeps by live tiles (one run): "
             + json.dumps({t: c for t, c in enumerate(h) if c}))
@@ -555,7 +585,7 @@ def rank_path_phase(mats) -> dict:
     for k, what in (("B1", "build"), ("B2", "sweep")):
         if counts[k] > calls[k]:
             sys.exit(f"chip_smoke: {k} made more than one launch per {what}")
-    return counts
+    return counts, mk12
 
 
 def dense_finisher_phase() -> dict:
@@ -1269,6 +1299,218 @@ def checkpoint_phase(rounds_ref) -> dict:
     return counts
 
 
+def _mesh_run(label, A, opts, mesh, single_wall=None):
+    """echelonize(A, opts) under `mesh`, timed to a synchronize, with its
+    peak device memory, launches and mesh counters printed."""
+    from spasm_tpu_torch import _cuda, echelonize
+    from spasm_tpu_torch.parallel import context as mesh_ctx
+    from spasm_tpu_torch.parallel import use_mesh
+    before = dict(_cuda.launches)
+    moved0 = sum(mesh_ctx.moved_bytes.values())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with use_mesh(mesh):
+        fact = echelonize(A, opts)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    runs = {k: v - before[k] for k, v in _cuda.launches.items()
+            if v != before[k]}
+    log(f"{label}: rank {fact.r}, wall {wall:.3f} s"
+        + (f" (single card {single_wall:.3f} s)" if single_wall else "")
+        + f", peak device memory {peak:.2f} GiB, moved "
+        f"{(sum(mesh_ctx.moved_bytes.values()) - moved0) / 2 ** 20:.1f} MiB,"
+        f" launches {runs}")
+    return fact, wall
+
+
+def mesh_phase(mats, mk12, tref, pluq16k, rounds_ref) -> dict:
+    """The mesh, with the launch counts and the mesh's counters zeroed
+    first (see the module docstring, phase 10).  mk12: phase 4's warm
+    mk12.b4 factorization; tref: (trefethen_2000, its CPU run, which
+    phase 5 held the card run to); pluq16k: (A, phase 5's complete
+    PLUQ); rounds_ref: (qinv, U) of phase 6's mk12.b4 rounds run."""
+    from spasm_tpu_torch import EchelonizeOptions, _cuda, echelonize
+    from spasm_tpu_torch.certificate import factorization_verify
+    from spasm_tpu_torch.csr import CSR
+    from spasm_tpu_torch.dense import reduced
+    from spasm_tpu_torch.dense.subst import _subst_waves_plain
+    from spasm_tpu_torch.echelonize import _Engine
+    from spasm_tpu_torch.field import Field
+    from spasm_tpu_torch.gen import matching_complex_boundary
+    from spasm_tpu_torch.parallel import context as mesh_ctx
+    from spasm_tpu_torch.parallel import make_mesh, use_mesh
+    t_phase = time.time()
+    cuda0 = torch.device("cuda", 0)
+    meshes = [("A", make_mesh(devices=[cuda0] * 4))]
+    log("mesh A: (2, 2) of cuda:0 x 4; one card: the mesh repeats cuda:0")
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        meshes.append(("B", make_mesh()))
+        log(f"mesh B: make_mesh() over {ncards} cards, shape "
+            f"{meshes[1][1].shape}: " + ", ".join(
+                f"{d} {torch.cuda.get_device_name(d)}"
+                for d in meshes[1][1].devices.ravel()))
+    else:
+        log(f"mesh B (make_mesh() over distinct cards): not run, "
+            f"torch.cuda.device_count() = {ncards}")
+    B, want = mats["mk12.b4"], MK["mk12.b4"][2]
+    A_t, tref_ref = tref
+    A16, pluq_ref = pluq16k
+    A_t4 = CSR(A_t.n, A_t.m, Field(P4), A_t.indptr, A_t.indices, A_t.data)
+    A10 = matching_complex_boundary(10, 3)
+    if A10.n < A10.m:
+        A10 = A10.transpose()
+    pluq = EchelonizeOptions(complete=True)
+
+    # B1 at a column shard's shape, against its plain version, timed
+    b1_real_schedule(B, "mk12.b4", EchelonizeOptions(), shards=2)
+    # R under the mesh (B1 on each column shard) == the single-card R
+    eng = _Engine(B, EchelonizeOptions(), cuda0)
+    eng.extract_structural(B)
+    qfree = np.nonzero(eng.U.qinv < 0)[0]
+    store = eng.U.flat_store()
+    rb1 = reduced.ReducedBasis(B.m, P, qfree, eng.U.n, cuda0)
+    rb1.build(*store)
+    with use_mesh(meshes[0][1]):
+        rbm = reduced.ReducedBasis(B.m, P, qfree, eng.U.n, cuda0)
+        rbm.build(*store)
+    Rm = rbm.R.gather()
+    if not torch.equal(Rm, rb1.R):
+        sys.exit("chip_smoke: R under mesh A differs from the single-card R")
+    # and the plain wave loop (torch ops on the card) gives the same R
+    real_subst = reduced.subst_waves
+    reduced.subst_waves = _subst_waves_plain
+    rbp = reduced.ReducedBasis(B.m, P, qfree, eng.U.n, cuda0)
+    rbp.build(*store)
+    reduced.subst_waves = real_subst
+    if not torch.equal(Rm, rbp.R):
+        sys.exit("chip_smoke: R under mesh A differs from the plain build")
+    log(f"mk12.b4's R ({rbm.npad} x {rbm.M}) under mesh A, B1 on 2 column "
+        f"shards of {rbm.M // 2}: bit-equal to the single-card R and to "
+        f"the plain wave loop's")
+    del eng, rb1, rbm, rbp, Rm
+    torch.cuda.empty_cache()
+
+    # the single-card runs that phases 4-9 did not keep
+    _cuda.reset_launches()
+    mesh_ctx.reset_counts()
+    ref_t4 = _timed_rank(A_t4, None, f"trefethen_2000 at p = {P4}, single "
+                         "card")
+    ref10 = _timed_rank(A10, None, "mk10.b3 complete PLUQ, single card", pluq)
+    expect = {"B1": 0, "B1 wide": 0}   # col_quantum() launches per build
+    build = reduced.ReducedBasis.build
+
+    def counted_build(self, *a):
+        if self.npiv:
+            expect["B1" if self.prime <= 65535 else "B1 wide"] += \
+                mesh_ctx.col_quantum()
+        return build(self, *a)
+
+    reduced.ReducedBasis.build = counted_build
+    walls = {}
+    for tag, mesh in meshes:
+        c = mesh.shape["cols"]
+        # (a) the rank finisher, default options
+        fact, walls[f"{tag} a"] = _mesh_run(
+            f"({tag}a) mk12.b4 default options under mesh {tag}", B, None,
+            mesh, WALLS["mk12.b4 warm"])
+        if not (fact.r == want and _same_U(fact, mk12)):
+            sys.exit(f"chip_smoke: ({tag}a) differs from phase 4's run")
+        # (b) the SP axis: past one card's width cap, within cap x cols
+        w = 12288
+        (fact, walls[f"{tag} b"]), taken = _finishers_taken(lambda: _mesh_run(
+            f"({tag}b) mk12.b4 device_dense_width={w} under mesh {tag}", B,
+            EchelonizeOptions(device_dense_width=w), mesh))
+        nfree = B.m - fact.rounds[0]["pivots"]
+        if not (w < nfree <= w * c and taken == ["finish_device_dense"]
+                and fact.r == want and _same_U(fact, mk12)):
+            sys.exit(f"chip_smoke: ({tag}b) nfree {nfree}, finishers "
+                     f"{taken}, rank {fact.r}: not the SP axis's rank "
+                     f"finisher, or not phase 4's factorization")
+        log(f"  {nfree} free columns > {w}, <= {w} x {c}: the rank finisher "
+            f"(spy: {taken}); qinv and U bit-equal to phase 4's run")
+        # (c) finish_dense RREF, column-sharded
+        fact, walls[f"{tag} c"] = _mesh_run(
+            f"({tag}c) trefethen_2000 default options under mesh {tag}", A_t,
+            None, mesh, WALLS["trefethen_2000 rank (finish_dense, RREF)"])
+        if not _same_U(fact, tref_ref):
+            sys.exit(f"chip_smoke: ({tag}c) differs from phase 5's run")
+        # (d) the complete PLUQ: row-sharded Schur, column-sharded LU
+        fact, walls[f"{tag} d"] = _mesh_run(
+            f"({tag}d) PLUQ16k complete PLUQ under mesh {tag}", A16, pluq,
+            mesh, WALLS["PLUQ16k complete PLUQ warm"])
+        t0 = time.time()
+        same = (_same_U(fact, pluq_ref) and np.array_equal(fact.p, pluq_ref.p)
+                and _same_csr(fact.L, pluq_ref.L))
+        t_cmp = time.time() - t0
+        t0 = time.time()
+        ok = factorization_verify(A16, fact, 42)
+        if not (same and ok):
+            sys.exit(f"chip_smoke: ({tag}d) L, U, p equal {same}, "
+                     f"factorization_verify {ok}")
+        log(f"  L, U and p bit-equal to phase 5's run (factors read and "
+            f"compared in {t_cmp:.1f} s); factorization_verify true "
+            f"({time.time() - t0:.1f} s)")
+        del fact
+        # (e) a d = 4 prime: panel_steps, the wide tier's torch sweep
+        fact, walls[f"{tag} e"] = _mesh_run(
+            f"({tag}e) trefethen_2000 at p = {P4} under mesh {tag}", A_t4,
+            None, mesh, WALLS[f"trefethen_2000 at p = {P4}, single card"])
+        if not _same_U(fact, ref_t4):
+            sys.exit(f"chip_smoke: ({tag}e) differs from the single card")
+        # (f) L mode's sparse Schur rounds: DeviceCSR.densify row-sharded
+        fact, walls[f"{tag} f"] = _mesh_run(
+            f"({tag}f) mk10.b3 complete PLUQ under mesh {tag}", A10, pluq,
+            mesh, WALLS["mk10.b3 complete PLUQ, single card"])
+        if not (_same_U(fact, ref10) and np.array_equal(fact.p, ref10.p)
+                and _same_csr(fact.L, ref10.L)
+                and factorization_verify(A10, fact, 42)):
+            sys.exit(f"chip_smoke: ({tag}f) differs from the single card or "
+                     f"fails factorization_verify")
+        # (g) the rounds: reduced-basis Schur round, finish_dense, low rank
+        fact, walls[f"{tag} g"] = _mesh_run(
+            f"({tag}g) mk12.b4 rounds (device_dense_width=0) under mesh "
+            f"{tag}", B, EchelonizeOptions(device_dense_width=0), mesh,
+            WALLS["mk12.b4 rounds profiled (stage clocks synchronize)"])
+        if not (fact.r == want and np.array_equal(fact.qinv, rounds_ref[0])
+                and _same_csr(fact.U, rounds_ref[1])):
+            sys.exit(f"chip_smoke: ({tag}g) differs from phase 6's run")
+        log(f"  (b)-(g) bit-equal to the single card: qinv and U, and L and "
+            f"p where present; (d) and (f) verified")
+    reduced.ReducedBasis.build = build
+    counts = dict(_cuda.launches)
+    _launched(counts, ("B1", "B3", "B4 rref", "B4 lu"), "the mesh")
+    for k in ("B1", "B1 wide"):
+        if counts[k] != expect[k]:
+            sys.exit(f"chip_smoke: {k} launched {counts[k]} times, not "
+                     f"cols x builds = {expect[k]}")
+    log(f"B1 {counts['B1']} and B1 wide {counts['B1 wide']} launches = "
+        f"cols x reduced-basis builds, single-card builds counted once")
+    missing = [s for s in mesh_ctx.SITES if mesh_ctx.site_calls[s] == 0]
+    if missing:
+        sys.exit(f"chip_smoke: mesh sites never called: {missing}")
+    log("mesh site calls and moved bytes (all meshes of this phase):")
+    for s_, what in mesh_ctx.SITES.items():
+        log(f"  site {s_} {what}: {mesh_ctx.site_calls[s_]} calls, "
+            f"{mesh_ctx.moved_bytes[s_]} bytes")
+    log(f"  moved in all: {sum(mesh_ctx.moved_bytes.values())} bytes")
+    # the cost of sharding on one card (every mesh repeats cuda:0): not
+    # a scaling curve, which needs distinct cards
+    log("the cost of sharding on one card, mk12.b4 default options "
+        "(meshes repeating cuda:0; not scaling):")
+    for n in (1, 2, 4):
+        mesh = make_mesh(devices=[cuda0] * n)
+        mesh_ctx.reset_counts()
+        fact, wall = _mesh_run(f"  {n} x cuda:0, shape {mesh.shape}", B,
+                               None, mesh)
+        if fact.r != want:
+            sys.exit(f"chip_smoke: mk12.b4 on {n} x cuda:0: rank {fact.r}")
+        del fact
+    log(f"the mesh phase: {time.time() - t_phase:.1f} s")
+    return counts
+
+
 def main(argv) -> int:
     if argv[:1] == ["--preempted"]:
         preempted_child(*argv[1:3])
@@ -1279,19 +1521,21 @@ def main(argv) -> int:
     logging.getLogger("spasm_tpu_torch").setLevel(logging.WARNING)
     mats = matching_complexes()
     kernels = kernel_phase(mats)
-    counts = rank_path_phase(mats)
+    counts, mk12 = rank_path_phase(mats)
     counts4, pluq16k, tref = dense_finisher_phase()
     counts5, rounds_ref = rounds_phase(mats)
     counts6, wide16k = wide_phase(mats)
     counts7 = tools_phase(pluq16k, tref, wide16k)
-    del pluq16k, wide16k
+    del wide16k
     counts8 = checkpoint_phase(rounds_ref)
+    counts9 = mesh_phase(mats, mk12, tref, pluq16k, rounds_ref)
+    del pluq16k, mk12
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "spasm_tpu"))
     if leaked:
         sys.exit(f"chip_smoke: JAX modules were imported: {leaked[:5]}")
-    # launches: the sum over the paths (phases 4-9)
-    paths = (counts, counts4, counts5, counts6, counts7, counts8)
+    # launches: the sum over the paths (phases 4-10)
+    paths = (counts, counts4, counts5, counts6, counts7, counts8, counts9)
     for k, keys in (("B1", ["B1"]), ("B1 wide", ["B1 wide"]), ("B2", ["B2"]),
                     ("B3", ["B3"]), ("B4", ["B4 rref", "B4 lu"])):
         kernels[k]["launches"] = sum(c[key] for c in paths for key in keys)

@@ -15,7 +15,10 @@ save, load) and `factorization_verify`, `maximum_matching` /
 `structural_rank`, `dulmage_mendelsohn` / `strongly_connected_components`;
 and the ten CLI tools (`python -m spasm_tpu_torch.cli.rank`, see cli/);
 checkpoint/resume of the engine (`EchelonizeOptions(checkpoint_file=F)`,
-`--checkpoint F`), its files interchangeable with the JAX package's.
+`--checkpoint F`), its files interchangeable with the JAX package's;
+and the mesh (`parallel/`: `with use_mesh(make_mesh()): echelonize(A)`
+shards the engine's device stages over the cards one process drives,
+bit-identical to one device).
 
 Layout: the host modules (field, csr, hashing, sio, gen, pivots, spmv,
 triangular, rref, kernel, solve, certificate, matching, dm and the native

@@ -32,7 +32,7 @@ from typing import Dict, Optional
 _HERE = pathlib.Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _SOURCES = ("subst.cu", "row_sweep.cu", "panel.cu")
-_HEADERS = ("modp.cuh", "cluster.cuh")
+_HEADERS = ("modp.cuh", "cluster.cuh", "device.cuh")
 BUILD_DIR = _HERE.parent / "build" / "spasm_tpu_torch"
 
 launches: Dict[str, int] = {"B1": 0, "B1 wide": 0, "B2": 0,

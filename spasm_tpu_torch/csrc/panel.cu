@@ -60,6 +60,7 @@
 #include <cstdint>
 
 #include "cluster.cuh"
+#include "device.cuh"
 #include "modp.cuh"
 
 namespace cg = cooperative_groups;
@@ -455,17 +456,20 @@ cudaError_t launch_cluster(const int* P, long long ld, int n,
                            unsigned char* lhas, unsigned char* piv_out,
                            int* Z, int* Vinv, int p, int rref,
                            long long* stamps, cudaStream_t s) {
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(
-        panel_cluster<kStamp>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-        1);
+  static bool ready[spasm::kMaxDevices] = {};  // attributes set, per card
+  int dev = 0;
+  cudaError_t e = spasm::current_device(&dev);
+  if (e != cudaSuccess) return e;
+  if (!ready[dev]) {
+    e = cudaFuncSetAttribute(panel_cluster<kStamp>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(panel_cluster<kStamp>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(cluster_smem(kRowsMax)));
     if (e != cudaSuccess) return e;
-    ready = true;
+    ready[dev] = true;
   }
   const int R = (n + kCluster - 1) / kCluster;
   cudaLaunchConfig_t cfg = {};
@@ -490,20 +494,21 @@ cudaError_t launch_coop(const int* P, long long ld, int n,
                         unsigned char* lhas, unsigned char* piv_out, int* Z,
                         int* Vinv, int* Pt, int* rslot, int p, int rref,
                         long long* stamps, cudaStream_t s) {
-  static int max_blocks = 0;            // co-resident blocks on this card
-  if (max_blocks == 0) {
-    int dev = 0, sms = 0, per = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static int max_blocks[spasm::kMaxDevices] = {};  // co-resident, per card
+  int dev = 0;
+  cudaError_t e = spasm::current_device(&dev);
+  if (e != cudaSuccess) return e;
+  if (max_blocks[dev] == 0) {
+    int sms = 0, per = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per, panel_coop<kStamp>, kThreads, 0);
     if (e != cudaSuccess) return e;
-    max_blocks = per * sms;
+    max_blocks[dev] = per * sms;
   }
   int blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > max_blocks) blocks = max_blocks;
+  if (blocks > max_blocks[dev]) blocks = max_blocks[dev];
   if (blocks < 1) blocks = 1;
   void* args[] = {&P,    &ld,   &n,  &piv_in, &lrows, &lhas,  &piv_out, &Z,
                   &Vinv, &Pt,   &rslot, &p,   &rref,  &stamps};

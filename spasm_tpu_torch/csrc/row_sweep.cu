@@ -76,6 +76,7 @@
 #include <cstdint>
 
 #include "cluster.cuh"
+#include "device.cuh"
 #include "modp.cuh"
 
 namespace cg = cooperative_groups;
@@ -597,13 +598,18 @@ extern "C" int spasm_row_sweep(void* P, int nb, int M, void* pivcol,
 // cooperative launch.
 extern "C" int spasm_row_sweep_tiles(void* P, int M, void* st, void* hist,
                                      int p, void* stream) {
-  static int max_blocks = 0;            // co-resident blocks on this card
-  if (max_blocks == 0) {
-    int dev = 0, sms = 0, per = 0;
+  // co-resident blocks, per card (the attribute is set per card too)
+  static int max_blocks[spasm::kMaxDevices] = {};
+  int dev = 0;
+  {
+    const cudaError_t e = spasm::current_device(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (max_blocks[dev] == 0) {
+    int sms = 0, per = 0;
     cudaError_t e = cudaFuncSetAttribute(
         tile_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
@@ -611,10 +617,10 @@ extern "C" int spasm_row_sweep_tiles(void* P, int M, void* st, void* hist,
                                                         kThreads, kSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (per < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    max_blocks = per * sms;
+    max_blocks[dev] = per * sms;
   }
   int blocks = M / kCW;
-  if (blocks > max_blocks) blocks = max_blocks;
+  if (blocks > max_blocks[dev]) blocks = max_blocks[dev];
   int* a_P = static_cast<int*>(P);
   int* a_st = static_cast<int*>(st);
   int* a_hist = static_cast<int*>(hist);
@@ -637,13 +643,18 @@ extern "C" int spasm_row_sweep_cluster(void* P, int nb, int M, void* pivcol,
                                        int p, void* stream) {
   if (nb < 1 || nb > kNB || M < 1 || M > kCB * kCColsMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool ready = false;
-  if (!ready) {
+  static bool ready[spasm::kMaxDevices] = {};  // attribute set, per card
+  int dev = 0;
+  {
+    const cudaError_t e = spasm::current_device(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (!ready[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         sweep_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(cluster_sweep_smem(kCB * kCColsMax)));
     if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
+    ready[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCB);

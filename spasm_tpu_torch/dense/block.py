@@ -15,8 +15,12 @@ cost a host sync per chunk.  The JAX package's padding of each run's
 chunk count to a power of two with dead chunks only bounded XLA
 compilations and has no counterpart; the padding of chunk shapes to
 buckets stays (it keeps the dead column the padded slots point at).
-The mesh placement of the JAX package (`shard_rows`, `replicated`) is
-left out: it is the identity on one card.
+
+Under an active mesh (parallel/context.py) the block is row-sharded and
+the chunk bases replicated, pure data parallelism: `pad_block` places
+the row blocks, `eliminate_device` applies every run to each row shard
+on its own device against that device's replica of the run (made once
+per run and mesh), and `eliminate` gathers the rows back in order.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from .elim import _size_bucket, _submod
 from .modp import dnorm64, matmul_digits
+from ..parallel import context as mesh_ctx
 
 _DEFAULT_CHUNK = 1024
 _DENSE_BUDGET = 32 << 20      # max int32 elements per densified chunk
@@ -105,6 +110,14 @@ def _apply_chunk_run(X: torch.Tensor, run: _Run, p: int,
     return X
 
 
+def row_bucket(B: int) -> int:
+    """Padded row count of a dense block: _size_bucket(B, 8), rounded up
+    to 8 * row_quantum() so that every row shard of an active mesh holds
+    an equal slice (zero rows are inert)."""
+    q = 8 * mesh_ctx.row_quantum()
+    return -(-_size_bucket(B, 8) // q) * q
+
+
 def _bucket(k: int) -> int:
     """Round up to a power of two (min 32)."""
     b = 32
@@ -132,6 +145,8 @@ class UEliminator:
         self.device = torch.device(device)
         self.chunk = chunk
         self.runs: List[_Run] = []
+        # under a mesh: the mesh and, by id(run.V), (run.V, its replicas)
+        self._replicas: tuple = (None, {})
         # staged items in insertion order: ("seg", (offs, cols, vals,
         # pivcols, levels|None)) or ("def", thunk, k)
         self._staged: List[tuple] = []
@@ -340,12 +355,17 @@ class UEliminator:
                               torch.as_tensor(jp, device=V.device)[None],
                               V[None], K, winv))
 
-    def pad_block(self, X: np.ndarray) -> torch.Tensor:
+    def pad_block(self, X: np.ndarray):
         """Host block (B, m) -> padded device block (row and column
-        buckets; the extra dead column m absorbs padded-slot writes)."""
+        buckets; the extra dead column m absorbs padded-slot writes).
+        Under an active mesh the block is placed row-sharded (pure DP)."""
         B, m = X.shape
-        Xp = torch.zeros((_size_bucket(B, 8), _size_bucket(m + 1, 64)),
-                         dtype=torch.int32, device=self.device)
+        shape = (row_bucket(B), _size_bucket(m + 1, 64))
+        if mesh_ctx.current_mesh() is not None:
+            Xp = np.zeros(shape, np.int32)
+            Xp[:B, :m] = X
+            return mesh_ctx.shard_rows(Xp, site=1)
+        Xp = torch.zeros(shape, dtype=torch.int32, device=self.device)
         Xp[:B, :m] = torch.as_tensor(np.asarray(X, np.int32),
                                      device=self.device)
         return Xp
@@ -372,11 +392,40 @@ class UEliminator:
         self.runs = merged
         return merged
 
-    def eliminate_device(self, Xd: torch.Tensor,
-                         park: bool = True) -> torch.Tensor:
+    def _shard_runs(self, mesh) -> List[List[_Run]]:
+        """The dispatch runs replicated onto every row shard's device:
+        [shard][run].  A run keeps its replicas while it stays in the
+        list (cached per mesh, as the JAX package keyed its replicated
+        runs by id(mesh)); a merged run is replicated anew."""
+        runs = self._dispatch_runs()
+        old_mesh, cache = self._replicas
+        if old_mesh is not mesh:
+            cache = {}
+        fresh = {}
+        for run in runs:
+            hit = cache.get(id(run.V))
+            if hit is None or hit[0] is not run.V:
+                reps = [mesh_ctx.replicated(t, mesh, site=2).shards
+                        if t is not None else [None] * mesh.shape["rows"]
+                        for t in (run.cols, run.jpos, run.V, run.winv)]
+                hit = (run.V, [_Run(c, j, v, run.k, w)
+                               for c, j, v, w in zip(*reps)])
+            fresh[id(run.V)] = hit
+        self._replicas = (mesh, fresh)
+        return [[fresh[id(run.V)][1][i] for run in runs]
+                for i in range(mesh.shape["rows"])]
+
+    def eliminate_device(self, Xd, park: bool = True):
         """Eliminate the padded device block Xd (Bp, mp), mp > m, in
-        place against every registered row; returns Xd."""
+        place against every registered row; returns Xd.  A row-sharded Xd
+        (mesh_ctx.Sharded) is eliminated shard by shard, each on its own
+        device."""
         self.flush()
+        if isinstance(Xd, mesh_ctx.Sharded):
+            for shard, runs in zip(Xd.shards, self._shard_runs(Xd.mesh)):
+                for run in runs:
+                    _apply_chunk_run(shard, run, self.p, park)
+            return Xd
         for run in self._dispatch_runs():
             _apply_chunk_run(Xd, run, self.p, park)
         return Xd
@@ -388,5 +437,6 @@ class UEliminator:
         if not self.runs:
             return X
         B = X.shape[0]
-        Xd = self.eliminate_device(self.pad_block(X))
+        Xd = mesh_ctx.gather(self.eliminate_device(self.pad_block(X)),
+                             site=1)
         return Xd[:B, :self.m].cpu().numpy()

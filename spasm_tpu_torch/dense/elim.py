@@ -28,6 +28,11 @@ place the tier is chosen) and store balanced int32.  Rows pad to a
 quantum of 128 on every device (the JAX package pads to 32 off the
 TPU); zero rows are inert, so outputs sliced to the input's rows are the
 same.
+
+Under an active mesh (parallel/context.py) the elimination is
+column-sharded (`_eliminate`'s docstring): the padded width is a
+multiple of 512 * cols, the pivot map is gathered once, and the device
+entry points gather the pivot rows (and L's pivot columns) they return.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 from .modp import (_reduce31, device_field, dnorm64, matmul_digits, modinv,
                    mulmod)
 from ..field import Field
+from ..parallel import context as mesh_ctx
 from ..profiling import annotate, phase
 
 _NB = 64          # panel width (local sweep length)
@@ -241,34 +247,50 @@ def _panel_step(S: torch.Tensor, j0: int, is_piv: torch.Tensor,
     return lrows, lhas, is_piv2
 
 
-def _eliminate(S: torch.Tensor, p: int, rref: bool, nb: int = _NB,
-               nblk: int = 0):
+def _eliminate(S, p: int, rref: bool, nb: int = _NB, nblk: int = 0):
     """Full blocked elimination of S (n, m) int32 balanced, m % nb == 0,
     in place.  Returns (S, pivrow_of_col (m,) int32, is_piv (n,) bool,
     L (n, m) int32 in LU mode, else None).  In LU mode, L's slot column t
-    of panel q holds the multiplier column of local step t."""
+    of panel q holds the multiplier column of local step t.
+
+    S may be column-sharded (mesh_ctx.Sharded, axis 1, each shard a whole
+    number of nblk-column blocks: right-looking column-block elimination,
+    the JAX package's P(None, 'cols')).  Block qb's panels and trailing
+    inverse run on the shard that owns it; the owner broadcasts lrows,
+    lhas, is_piv, Z and G - I (n x nblk) to the shards right of it, and
+    each of those forms its own rows of U and updates its own columns.  L
+    is sharded as S (a block's slot columns stay with its owner), and
+    pivrow_of_col comes back sharded the same way (axis 0 of its own)."""
     from .panel import panel_pivots
     # B4 holds the d == 2 tier; above it the panels take the torch route
     pivots = panel_pivots if _small(p) else panel_steps
-    n, m = S.shape
-    dev = S.device
+    sharded = isinstance(S, mesh_ctx.Sharded)
+    shards = S.shards if sharded else [S]
+    n, w = shards[0].shape
     if nblk <= 0:
         nblk = _NBLK
-    nblk = min(nblk, m)
-    if m % nblk != 0:        # padded sizes are 2^k or 512q: only tiny m
+    nblk = min(nblk, w)
+    if w % nblk != 0:        # padded sizes are 2^k or 512q: only tiny m
         nblk = nb
-    nblocks = m // nblk
-    L = None if rref else torch.zeros((n, m), dtype=torch.int32, device=dev)
-    pivrow_of_col = torch.full((m,), -1, dtype=torch.int32, device=dev)
-    is_piv = torch.zeros(n, dtype=torch.bool, device=dev)
-    eyeb = torch.eye(nblk, dtype=torch.int32, device=dev)
-    slot = torch.arange(nblk, device=dev)
+    per = w // nblk                    # blocks per shard
+    nblocks = per * len(shards)
+    Ls = None if rref else [torch.zeros((n, w), dtype=torch.int32,
+                                        device=t.device) for t in shards]
+    pivrows = [torch.full((w,), -1, dtype=torch.int32, device=t.device)
+               for t in shards]
+    # the latest pivot-row mask on each shard (it rides the broadcasts)
+    piv_at = [torch.zeros(n, dtype=torch.bool, device=shards[0].device)]
+    piv_at += [None] * (len(shards) - 1)
     for qb in range(nblocks):
-        j0 = qb * nblk
+        own, b = divmod(qb, per)
+        j0 = b * nblk
         j1 = j0 + nblk
-        P_pre = S[:, j0:j1].clone()
-        B = S[:, j0:j1]                    # the panels update it in place
-        Lb = None if rref else L[:, j0:j1]
+        S0 = shards[own]
+        dev = S0.device
+        is_piv = piv_at[own]
+        P_pre = S0[:, j0:j1].clone()
+        B = S0[:, j0:j1]                   # the panels update it in place
+        Lb = None if rref else Ls[own][:, j0:j1]
         lrows = torch.full((nblk,), -1, dtype=torch.int32, device=dev)
         lhas = torch.zeros(nblk, dtype=torch.bool, device=dev)
         for jl in range(0, nblk, nb):
@@ -276,15 +298,16 @@ def _eliminate(S: torch.Tensor, p: int, rref: bool, nb: int = _NB,
                                          pivots)
             lrows[jl:jl + nb] = lr
             lhas[jl:jl + nb] = lh
-        pivrow_of_col[j0:j1] = torch.where(lhas, lrows, -1)
+        piv_at[own] = is_piv
+        pivrows[own][j0:j1] = torch.where(lhas, lrows, -1)
         if qb == nblocks - 1:
             break
         # one composed update of the trailing columns for the whole block;
         # its nblk-step inverse is a loop of small torch ops
         lsafe = torch.where(lhas, lrows, 0).to(torch.int64)
         both = lhas[:, None] & lhas[None, :]
-        W = torch.where(both, P_pre[lsafe], eyeb)
-        rows_cur = torch.where(lhas[:, None], S[lsafe, j1:], 0)
+        W = torch.where(both, P_pre[lsafe],
+                        torch.eye(nblk, dtype=torch.int32, device=dev))
         with phase("trailing_inverse"):
             if rref:
                 Z = _jordan_inverse(W, p)
@@ -292,22 +315,56 @@ def _eliminate(S: torch.Tensor, p: int, rref: bool, nb: int = _NB,
             else:
                 Z, _ = _forward_factor(W, p)
                 G = torch.where(lhas[None, :], Lb, 0)
-        U = torch.where(lhas[:, None], matmul_digits(Z, rows_cur, p), 0)
-        G = G.index_put((lsafe, slot), torch.where(lhas, -1, 0).to(
-            torch.int32), accumulate=True)
-        S[:, j1:] = _submod(S[:, j1:], matmul_digits(G, U, p), p)
-    return S, pivrow_of_col, is_piv, L
+        # G - I at the pivot slots
+        G = G.index_put((lsafe, torch.arange(nblk, device=dev)),
+                        torch.where(lhas, -1, 0).to(torch.int32),
+                        accumulate=True)
+        right = [t.device for t in shards[own + 1:]]
+        sent = [mesh_ctx.broadcast(x, right, site=3)
+                for x in (lrows, lhas, is_piv, Z, G)] if right else []
+        for t in range(own, len(shards)):
+            if t == own:
+                c0, lr_t, lh_t, Z_t, G_t = j1, lrows, lhas, Z, G
+            else:
+                c0 = 0
+                lr_t, lh_t, piv_at[t], Z_t, G_t = (x[t - own - 1]
+                                                  for x in sent)
+            St = shards[t]
+            if c0 == w:                    # the owner's last block
+                continue
+            ls_t = torch.where(lh_t, lr_t, 0).to(torch.int64)
+            rows_cur = torch.where(lh_t[:, None], St[ls_t, c0:], 0)
+            U = torch.where(lh_t[:, None], matmul_digits(Z_t, rows_cur, p),
+                            0)
+            St[:, c0:] = _submod(St[:, c0:], matmul_digits(G_t, U, p), p)
+    if not sharded:
+        return S, pivrows[0], piv_at[0], None if rref else Ls[0]
+    return (S, mesh_ctx.Sharded(pivrows, 0, S.mesh), piv_at[own],
+            None if rref else mesh_ctx.Sharded(Ls, 1, S.mesh))
 
 
-def _pad(S: torch.Tensor, nb: int) -> torch.Tensor:
-    """Zero-pad S to (row bucket of 128, column bucket of nb); a new
-    tensor either way (the elimination runs in place)."""
-    n, m = S.shape
+def _col_bucket(m: int, nb: int) -> int:
+    """Padded column count: _size_bucket(m, nb), and under an active
+    mesh with cols > 1 a multiple of nblk * cols, so that every column
+    shard holds whole 512-column blocks (zero columns take no pivot)."""
     mp = _size_bucket(max(m, 1), nb)
-    np_ = _size_bucket(max(n, 1), _ROWS_QUANTUM)
-    out = torch.zeros((np_, mp), dtype=torch.int32, device=S.device)
+    c = mesh_ctx.col_quantum()
+    if c > 1:
+        q = _NBLK * c
+        mp = -(-mp // q) * q
+    return mp
+
+
+def _pad(S: torch.Tensor, nb: int):
+    """Zero-pad S to (row bucket of 128, column bucket of nb); a new
+    tensor either way (the elimination runs in place).  Under an active
+    mesh the padded S is placed column-sharded (site 3)."""
+    n, m = S.shape
+    out = torch.zeros((_size_bucket(max(n, 1), _ROWS_QUANTUM),
+                       _col_bucket(m, nb)), dtype=torch.int32,
+                      device=S.device)
     out[:n, :m] = S
-    return out
+    return mesh_ctx.shard_cols(out, site=3)
 
 
 def _run(S: np.ndarray, p: int, rref: bool, nb: int, device):
@@ -316,22 +373,34 @@ def _run(S: np.ndarray, p: int, rref: bool, nb: int, device):
         nb), p, rref, nb)
 
 
+def _pivot_rows(Sf, rows: torch.Tensor, m: int) -> torch.Tensor:
+    """Sf[rows, :m] on rows' device; of a column-sharded Sf, each shard
+    selects the rows, then one gather."""
+    if isinstance(Sf, mesh_ctx.Sharded):
+        Sf = mesh_ctx.gather(Sf.map(lambda t: t[rows.to(t.device)]),
+                             site=3)
+        rows = torch.arange(rows.numel(), device=Sf.device)
+    return Sf[rows, :m]
+
+
 @annotate("dense_rref")
 def dense_rref_device(Xd: torch.Tensor, p: int, nb: int = _NB):
     """Device-resident RREF of Xd (n, m), on Xd's device.  Returns (Rd,
     pivcols): Rd the (rank, m) reduced pivot rows on the device (ordered
     by pivot column, unit pivots), pivcols the ascending host pivot
-    columns.  Only the (m,) pivot-row map crosses to the host."""
+    columns.  Only the (m,) pivot-row map crosses to the host.  Under an
+    active mesh the elimination runs column-sharded and Rd is gathered
+    onto Xd's device."""
     n, m = Xd.shape
     Sf, pivrow_of_col, _, _ = _eliminate(_pad(Xd, nb), p, True, nb)
-    pivrow = pivrow_of_col.cpu().numpy()[:m]
+    pivrow = mesh_ctx.gather(pivrow_of_col, site=3).cpu().numpy()[:m]
     pivcols = np.nonzero(pivrow >= 0)[0]
     if not pivcols.size:
         return (torch.zeros((0, m), dtype=torch.int32, device=Xd.device),
                 pivcols.astype(np.int64))
     rows = torch.as_tensor(pivrow[pivcols].astype(np.int64),
                            device=Xd.device)
-    return Sf[rows, :m], pivcols.astype(np.int64)
+    return _pivot_rows(Sf, rows, m), pivcols.astype(np.int64)
 
 
 def _normalize_rows(Ud: torch.Tensor, pv: torch.Tensor,
@@ -350,17 +419,31 @@ def dense_lu_device(Xd: torch.Tensor, p: int, nb: int = _NB):
     n, m = Xd.shape
     dev = Xd.device
     Sf, pivrow_of_col, _, Lslots = _eliminate(_pad(Xd, nb), p, False, nb)
-    pivrow = pivrow_of_col.cpu().numpy()[:m]
+    pivrow = mesh_ctx.gather(pivrow_of_col, site=3).cpu().numpy()[:m]
     pivcols = np.nonzero(pivrow >= 0)[0].astype(np.int64)
     if not pivcols.size:
         return (np.empty(0, np.int64), pivcols,
                 torch.zeros((n, 0), dtype=torch.int32, device=dev),
                 torch.zeros((0, m), dtype=torch.int32, device=dev))
     prows = pivrow[pivcols].astype(np.int64)
-    rows_d = torch.as_tensor(prows, device=dev)
+    Urows = _pivot_rows(Sf, torch.as_tensor(prows, device=dev), m)
     cols_d = torch.as_tensor(pivcols, device=dev)
-    Ud = _normalize_rows(Sf[rows_d, :m], Sf[rows_d, cols_d], p)
-    return prows, pivcols, Lslots[:n, cols_d], Ud
+    Ud = _normalize_rows(Urows, Urows[torch.arange(pivcols.size,
+                                                   device=dev), cols_d], p)
+    return prows, pivcols, _pivot_cols(Lslots, pivcols, n), Ud
+
+
+def _pivot_cols(L, pivcols: np.ndarray, n: int) -> torch.Tensor:
+    """L[:n, pivcols] on the first device; of a column-sharded L, each
+    shard selects the pivot columns it owns (ascending, so the gather's
+    shard order keeps pivcols' order)."""
+    if not isinstance(L, mesh_ctx.Sharded):
+        return L[:n, torch.as_tensor(pivcols, device=L.device)]
+    b = L.bounds()
+    return mesh_ctx.gather(mesh_ctx.Sharded(
+        [t[:n, torch.as_tensor(pivcols[(pivcols >= b0) & (pivcols < b1)]
+                               - b0, device=t.device)]
+         for t, b0, b1 in zip(L.shards, b[:-1], b[1:])], 1, L.mesh), site=3)
 
 
 # Below this many elements the numpy sweep beats device dispatch.
@@ -423,11 +506,11 @@ def dense_rref(S: np.ndarray, p: int, nb: int = _NB, force: str = None,
             np.empty((0, m), np.int32)
         return R, pivcols
     Sf, pivrow_of_col, _, _ = _run(S, p, True, nb, device)
-    pivrow_of_col = pivrow_of_col.cpu().numpy()[:m]
+    pivrow_of_col = mesh_ctx.gather(pivrow_of_col, "cpu", 3).numpy()[:m]
     pivcols = np.nonzero(pivrow_of_col >= 0)[0]
     rows = pivrow_of_col[pivcols]
-    R = Sf.cpu().numpy()[rows][:, :m] if pivcols.size else \
-        np.empty((0, m), np.int32)
+    R = mesh_ctx.gather(Sf, "cpu", 3).numpy()[rows][:, :m] \
+        if pivcols.size else np.empty((0, m), np.int32)
     return R, pivcols.astype(np.int64)
 
 
@@ -451,16 +534,16 @@ def dense_lu(S: np.ndarray, p: int, nb: int = _NB, force: str = None,
             Lc = np.empty((n, 0), np.int32)
         return rank, prows, pivcols, Lc, Urows
     Sf, pivrow_of_col, _, Lslots = _run(S, p, False, nb, device)
-    pivrow_of_col = pivrow_of_col.cpu().numpy()[:m]
+    pivrow_of_col = mesh_ctx.gather(pivrow_of_col, "cpu", 3).numpy()[:m]
     pivcols = np.nonzero(pivrow_of_col >= 0)[0]
     rows = pivrow_of_col[pivcols]
     rank = pivcols.size
     if rank:
-        Sf = Sf.cpu().numpy()
+        Sf = mesh_ctx.gather(Sf, "cpu", 3).numpy()
         inv = F.inverse_array(Sf[rows, pivcols].astype(np.int64))
         Urows = F.narray(Sf[rows][:, :m].astype(np.int64)
                          * inv.astype(np.int64)[:, None])
-        L = Lslots.cpu().numpy()[:n, pivcols]
+        L = mesh_ctx.gather(Lslots, "cpu", 3).numpy()[:n, pivcols]
     else:
         Urows = np.empty((0, m), np.int32)
         L = np.empty((n, 0), np.int32)
@@ -477,4 +560,4 @@ def dense_rank(S: np.ndarray, p: int, nb: int = _NB, force: str = None,
         _, prows, _, _ = _sweep_np(S, p, True)
         return int(prows.size)
     _, pivrow_of_col, _, _ = _run(S, p, True, nb, device)
-    return int((pivrow_of_col.cpu()[:m] >= 0).sum())
+    return int((mesh_ctx.gather(pivrow_of_col, "cpu", 3)[:m] >= 0).sum())

@@ -111,11 +111,14 @@ def _launch(P0, is_piv, p: int, rref: bool, stamps, variant: str):
             None if Pt is None else Pt.data_ptr(),
             None if rslot is None else rslot.data_ptr(), p, int(rref),
             int(variant == "cooperative"))
-    if stamps is None:
-        err = L.spasm_panel(*args, _cuda.stream_ptr(P0))
-    else:
-        err = L.spasm_panel_stamped(*args, stamps.data_ptr(),
-                                    _cuda.stream_ptr(P0))
+    # cudaLaunchKernelEx / cudaLaunchCooperativeKernel launch on the
+    # current device: make it P0's
+    with torch.cuda.device(dev):
+        if stamps is None:
+            err = L.spasm_panel(*args, _cuda.stream_ptr(P0))
+        else:
+            err = L.spasm_panel_stamped(*args, stamps.data_ptr(),
+                                        _cuda.stream_ptr(P0))
     _cuda.check(err, f"kernel B4 (spasm_panel, {variant} variant)")
     if rref:
         return lrows, lhas, piv_out, Z

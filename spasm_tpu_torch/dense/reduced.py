@@ -20,6 +20,16 @@ combinations) given as flat entry slots forms as
 Not ported: the JAX package's XLA scan build (`_phase_a_scan`) and its
 log-depth tail (`_build_tail`, `_host_spmm_modp`), which exist to beat
 XLA's per-level scan cost.
+
+Under an active mesh (parallel/context.py) R shards its width over
+'cols' (SP, the JAX package's P(None, 'cols')): column shard j holds R's
+columns [j M / cols, (j + 1) M / cols) on its own device, scatters only
+the free entries that fall there and runs kernel B1 on the same schedule
+over its own columns (a column of R depends only on the same column of
+the rows it references, so each shard is the single-device R's slice,
+bit for bit; the JAX package skipped its Pallas build under a mesh only
+because a Pallas call cannot be partitioned).  `form_block` forms each
+shard's columns locally and returns a column-sharded block.
 """
 from __future__ import annotations
 
@@ -31,7 +41,8 @@ import torch
 from .elim import _size_bucket, _submod
 from .modp import (_reduce31, device_field, dnorm64, matmul_digits,
                    storage_dtype)
-from .subst import nred_for, subst_waves
+from .subst import SUBST_COLS, nred_for, subst_waves
+from ..parallel import context as mesh_ctx
 
 
 def _ref_combine(V: torch.Tensor, R: torch.Tensor, refs: torch.Tensor,
@@ -81,9 +92,12 @@ class ReducedBasis:
         self.device = torch.device(device)
         self.F = device_field(prime)
         self.nq = int(qfree.size)
-        # width on the 2048 quantum, so R lines up with the JAX R; the
-        # pad is dead-column zeros
-        self.M = max(-(-(self.nq + 1) // 2048) * 2048, 2048)
+        # width on the 2048 quantum, so R lines up with the JAX R (and,
+        # under a mesh, every column shard holds whole B1 column chunks);
+        # the pad is dead-column zeros
+        self.mesh = mesh_ctx.current_mesh()
+        q = int(np.lcm(2048, SUBST_COLS * mesh_ctx.col_quantum()))
+        self.M = max(-(-(self.nq + 1) // q) * q, q)
         self.npad = _size_bucket(npiv + 1, 64)
         self.npiv = npiv
         self.dtype = storage_dtype(prime)
@@ -93,9 +107,10 @@ class ReducedBasis:
         self._colmap_np = colmap
         self.colmap = torch.as_tensor(colmap, device=self.device)
         self.qfree = qfree
-        self.R: Optional[torch.Tensor] = None      # (npad, M)
+        self.R = None          # (npad, M); a column-sharded one under a mesh
         self.pivmap: Optional[torch.Tensor] = None
         self._pivcol_of_row: Optional[np.ndarray] = None
+        self._shard_arrays = None
 
     @classmethod
     def from_numpy(cls, R: np.ndarray, qfree: np.ndarray,
@@ -109,7 +124,9 @@ class ReducedBasis:
         if R.shape != (rb.npad, rb.M):
             raise ValueError(f"R shape {R.shape} != {(rb.npad, rb.M)}")
         rb._set_pivots(pivcols)
-        rb.R = torch.from_numpy(np.array(R)).to(rb.device, rb.dtype)
+        rb.R = mesh_ctx.shard_cols(
+            torch.from_numpy(np.array(R)).to(rb.device, rb.dtype), rb.mesh,
+            site=4)
         return rb
 
     def _set_pivots(self, pivcols: np.ndarray) -> np.ndarray:
@@ -133,29 +150,46 @@ class ReducedBasis:
         rows of strictly greater group."""
         pivcols = np.asarray(pivcols, np.int64)
         pivmap = self._set_pivots(pivcols)
-        R = torch.zeros((self.npad, self.M), dtype=self.dtype,
-                        device=self.device)
+        if self.mesh is None:
+            devs, width = [self.device], self.M
+        else:
+            devs = mesh_ctx.shard_devices(self.mesh, 1)
+            width = self.M // len(devs)
+        Rs = [torch.zeros((self.npad, width), dtype=self.dtype, device=d)
+              for d in devs]
         if self.npiv:
-            self._build_subst(R, offs, cols, vals, pivcols,
+            self._build_subst(Rs, offs, cols, vals, pivcols,
                               np.asarray(groups), pivmap)
-        self.R = R
+        self.R = Rs[0] if self.mesh is None else \
+            mesh_ctx.Sharded(Rs, 1, self.mesh)
 
-    def _build_subst(self, R, offs, cols, vals, pivcols, groups, pivmap):
+    def _build_subst(self, Rs, offs, cols, vals, pivcols, groups, pivmap):
         """Scatter every row's free entries into R, then run the
-        substitution waves (descending groups) through kernel B1."""
+        substitution waves (descending groups) through kernel B1; Rs: R's
+        column shards (one without a mesh), each scattered and swept on
+        its own device with the same schedule."""
         order, rr, cc, vv, is_ref, refg = _ordered_entries(
             offs, cols, vals, pivcols, groups, pivmap, self.npad)
         is_free = ~is_ref & (cc != pivcols[order][rr])
-        # CSR rows have unique columns: a plain indexed store
-        if np.any(is_free):
-            fr = torch.as_tensor(order[rr[is_free]], device=self.device)
-            fc = torch.as_tensor(self._colmap_np[cc[is_free]],
-                                 device=self.device)
-            R[fr, fc] = torch.as_tensor(vv[is_free], device=self.device
-                                        ).to(R.dtype)
+        fr = order[rr[is_free]]
+        fc = self._colmap_np[cc[is_free]]
+        fv = vv[is_free]
         waves = _schedule(order, rr, vv, is_ref, refg, groups)
-        if waves[0].size:
-            subst_waves(R, *waves, self.prime)
+        width = Rs[0].shape[1]
+        for j, R in enumerate(Rs):
+            # CSR rows have unique columns: a plain indexed store
+            mine = (fc >= j * width) & (fc < (j + 1) * width)
+            if np.any(mine):
+                dev = R.device
+                R[torch.as_tensor(fr[mine], device=dev),
+                  torch.as_tensor(fc[mine] - j * width, device=dev)] = \
+                    torch.as_tensor(fv[mine], device=dev).to(R.dtype)
+            if waves[0].size:
+                subst_waves(R, *waves, self.prime)
+        if self.mesh is not None:
+            # what each shard received: its entries and the whole schedule
+            mesh_ctx.count(4, 20 * fr.size + 4 * len(Rs) * sum(
+                a.size for a in waves))
 
     # -- phase B -----------------------------------------------------------
 
@@ -171,44 +205,67 @@ class ReducedBasis:
         self.indices = torch.as_tensor(ind, device=self.device)
         self.data = torch.as_tensor(dat, device=self.device)
 
-    def _form_chunk(self, eidx: torch.Tensor, coeff: torch.Tensor
-                    ) -> torch.Tensor:
-        """Eliminated compact block (Bc, M) int32 for rows given as flat
-        entry slots: scatter(free entries) minus the weighted sum of the
-        referenced R rows."""
+    def _form_chunk(self, eidx: torch.Tensor, coeff: torch.Tensor, R,
+                    arrays, base: int) -> torch.Tensor:
+        """Eliminated compact block (Bc, w) int32 over R's columns [base,
+        base + w) for rows given as flat entry slots: scatter(free
+        entries) minus the weighted sum of the referenced R rows.  R: the
+        (npad, w) basis columns; arrays: (indices, data, colmap, pivmap)
+        on R's device."""
         p = self.prime
-        M = self.M
+        w = R.shape[1]
+        indices, data, colmap, pivmap = arrays
         small = self.F.ndigits == 2
-        C = self.indices[eidx]                       # (Bc, K) columns
+        C = indices[eidx]                            # (Bc, K) columns
         if small:
-            v = _reduce31(self.data[eidx] * coeff, p)   # |raw*coeff| < 2^30
+            v = _reduce31(data[eidx] * coeff, p)     # |raw*coeff| < 2^30
         else:
-            v = dnorm64(self.data[eidx].to(torch.int64)
+            v = dnorm64(data[eidx].to(torch.int64)
                         * coeff.to(torch.int64), p).to(torch.int32)
-        fc = self.colmap[C]
-        pr = self.pivmap[C]
+        fc = colmap[C]
+        pr = pivmap[C]
         # colliding entries sum: K balanced terms stay in int32 in the
         # d == 2 tier (the finisher caps its combination weight for
         # this), in int64 above it
-        X = torch.zeros((eidx.shape[0], M),
+        X = torch.zeros((eidx.shape[0], w),
                         dtype=torch.int32 if small else torch.int64,
-                        device=self.device)
-        X.scatter_add_(1, fc, v.to(X.dtype))
+                        device=R.device)
+        if w == self.M:
+            X.scatter_add_(1, fc, v.to(X.dtype))
+        else:
+            # a column shard: entries of other shards add 0 at column 0
+            fc = fc - base
+            mine = (fc >= 0) & (fc < w)
+            X.scatter_add_(1, torch.where(mine, fc, 0),
+                           torch.where(mine, v, 0).to(X.dtype))
         Xb = _reduce31(X, p) if small else dnorm64(X, p).to(torch.int32)
         K = eidx.shape[1]
-        delta = _ref_combine(v, self.R, pr, p, self._small_acc(K))
+        delta = _ref_combine(v, R, pr, p, self._small_acc(K))
         out = _submod(Xb, delta, p)
         # reference slots scattered onto the dead column: keep it zero so
         # rowspan-dependent rows cannot claim a false pivot there
-        out[:, M - 1] = 0
+        if base + w == self.M:
+            out[:, w - 1] = 0
         return out
 
+    def _arrays_on_shards(self):
+        """(indices, data, colmap, pivmap) on every column shard's device
+        (placed once per basis)."""
+        if self._shard_arrays is None:
+            reps = [mesh_ctx.broadcast(
+                t, mesh_ctx.shard_devices(self.mesh, 1), site=5)
+                for t in (self.indices, self.data, self.colmap,
+                          self.pivmap)]
+            self._shard_arrays = list(zip(*reps))
+        return self._shard_arrays
+
     def form_block(self, eidx: np.ndarray, coeff: np.ndarray,
-                   Bp: Optional[int] = None) -> torch.Tensor:
+                   Bp: Optional[int] = None):
         """Eliminated compact block (Bp, M) for rows given as flat entry
         slots.  eidx/coeff: (B, K) host arrays (pad with dead_eidx/0).
-        Rows past B come out zero.  Returns a device tensor of
-        self.dtype."""
+        Rows past B come out zero.  Returns a device tensor of self.dtype;
+        under a mesh a column-sharded one, each shard formed on its own
+        device."""
         B, K = eidx.shape
         if Bp is None:
             Bp = B
@@ -218,13 +275,26 @@ class ReducedBasis:
         ep[:B] = eidx
         cp = np.zeros((Bp, K), np.int32)
         cp[:B] = coeff
-        e_d = torch.as_tensor(ep, device=self.device)
-        c_d = torch.as_tensor(cp, device=self.device)
-        out = torch.empty((Bp, self.M), dtype=self.dtype, device=self.device)
-        for b0 in range(0, Bp, Bc):
-            out[b0:b0 + Bc] = self._form_chunk(e_d[b0:b0 + Bc],
-                                               c_d[b0:b0 + Bc])
-        return out
+        if self.mesh is None:
+            shards = [(self.R, (self.indices, self.data, self.colmap,
+                                self.pivmap))]
+        else:
+            shards = list(zip(self.R.shards, self._arrays_on_shards()))
+            mesh_ctx.count(5, (ep.nbytes + cp.nbytes) * len(shards))
+        outs, base = [], 0
+        for R, arrays in shards:
+            dev = R.device
+            e_d = torch.as_tensor(ep, device=dev)
+            c_d = torch.as_tensor(cp, device=dev)
+            out = torch.empty((Bp, R.shape[1]), dtype=self.dtype, device=dev)
+            for b0 in range(0, Bp, Bc):
+                out[b0:b0 + Bc] = self._form_chunk(
+                    e_d[b0:b0 + Bc], c_d[b0:b0 + Bc], R, arrays, base)
+            outs.append(out)
+            base += R.shape[1]
+        if self.mesh is None:
+            return outs[0]
+        return mesh_ctx.Sharded(outs, 1, self.mesh)
 
     def flat_rows(self, A_indptr: np.ndarray, rows: np.ndarray,
                   coeffs: Optional[np.ndarray] = None):
@@ -257,20 +327,30 @@ class ReducedBasis:
                 np.asarray(coeffs, np.int32).reshape(-1), lf)
         return eidx, coeff
 
-    def eliminate_full_width(self, Y: torch.Tensor) -> torch.Tensor:
+    def eliminate_full_width(self, Y: torch.Tensor):
         """Compact + eliminate full-width device rows Y (Sn, mp); the
-        dead column mp-1 of Y must be zero.  Returns (Sn, M) int32."""
+        dead column mp-1 of Y must be zero.  Returns (Sn, M) int32
+        (column-sharded under a mesh: the compact rows are sharded, the
+        pivot coefficients broadcast, and each shard eliminates its
+        columns against its part of R)."""
         mp = Y.shape[1]
         pcr = np.where(self._pivcol_of_row >= self.m, mp - 1,
                        self._pivcol_of_row)
         qsel = np.full(self.M, mp - 1, np.int64)
         qsel[:self.nq] = self.qfree
         Cf = Y[:, torch.as_tensor(pcr, device=Y.device)]   # (Sn, npad)
-        # R passes in its storage type: matmul_digits digitizes it one
-        # contraction chunk at a time
-        delta = matmul_digits(Cf, self.R, self.prime)
-        return _submod(Y[:, torch.as_tensor(qsel, device=Y.device)],
-                       delta, self.prime)
+        Yq = Y[:, torch.as_tensor(qsel, device=Y.device)]
+        if self.mesh is None:
+            # R passes in its storage type: matmul_digits digitizes it
+            # one contraction chunk at a time
+            return _submod(Yq, matmul_digits(Cf, self.R, self.prime),
+                           self.prime)
+        Yq = mesh_ctx.shard_cols(Yq, self.mesh, site=4)
+        Cfs = mesh_ctx.broadcast(Cf, [t.device for t in Yq.shards], site=4)
+        return mesh_ctx.Sharded(
+            [_submod(y, matmul_digits(c, R, self.prime), self.prime)
+             for y, c, R in zip(Yq.shards, Cfs, self.R.shards)], 1,
+            self.mesh)
 
     def _small_acc(self, K: int) -> bool:
         """True when K balanced products fit one int32 accumulator."""

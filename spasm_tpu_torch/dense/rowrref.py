@@ -36,6 +36,16 @@ through the wide `matmul_digits`.
 
 The last column of X must be dead (zero): gathers park unused indices
 there.
+
+Under an active mesh the finisher's blocks and `CompactBasis` are
+column-sharded (parallel/context.py, as R is in dense/reduced.py):
+`CompactBasis.apply` and `add` all-gather the (B, k) pivot-column
+coefficients, then update each shard on its own device;
+`rref_rows_device` gathers the block onto the mesh's first device, runs
+the sweep there on the full width (the leftmost-pivot search crosses
+shards; the kernel variant, chosen by width, stays that of one device)
+and scatters the result back, as XLA's partitioner does for a custom
+call on a sharded operand.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
+from ..parallel import context as mesh_ctx
 from .elim import _mulsub, _scale_rows, _submod
 from .modp import (check_small, device_field, dnorm64, matmul_digits,
                    modinv, storage_dtype)
@@ -89,14 +100,16 @@ def row_sweep(P: torch.Tensor, p: int) -> torch.Tensor:
         if L.spasm_row_sweep_cluster_cols() != CLUSTER_COLS:
             raise RuntimeError("csrc/row_sweep.cu disagrees with "
                                "CLUSTER_COLS")
-        err = L.spasm_row_sweep_cluster(P.data_ptr(), nb, M,
-                                        pivcol.data_ptr(), p,
-                                        _cuda.stream_ptr(P))
+        with torch.cuda.device(P.device):     # launches on the current one
+            err = L.spasm_row_sweep_cluster(P.data_ptr(), nb, M,
+                                            pivcol.data_ptr(), p,
+                                            _cuda.stream_ptr(P))
         n = 1
     else:
         st = torch.empty(nb + 2, dtype=torch.int32, device=P.device)
-        err = L.spasm_row_sweep(P.data_ptr(), nb, M, pivcol.data_ptr(),
-                                st.data_ptr(), p, _cuda.stream_ptr(P))
+        with torch.cuda.device(P.device):
+            err = L.spasm_row_sweep(P.data_ptr(), nb, M, pivcol.data_ptr(),
+                                    st.data_ptr(), p, _cuda.stream_ptr(P))
         n = 2 * nb
     _cuda.check(err, f"kernel B2 ({variant} variant)")
     _cuda.launches["B2"] += n
@@ -125,9 +138,10 @@ def row_sweep_tiles(P: torch.Tensor, p: int) -> torch.Tensor:
         raise RuntimeError("csrc/row_sweep.cu kTW disagrees with TILE_W")
     st = torch.empty(L.spasm_tile_state_size(), dtype=torch.int32,
                      device=P.device)
-    err = L.spasm_row_sweep_tiles(P.data_ptr(), M, st.data_ptr(),
-                                  live_tile_histogram(P.device).data_ptr(),
-                                  p, _cuda.stream_ptr(P))
+    hist = live_tile_histogram(P.device)
+    with torch.cuda.device(P.device):         # launches on the current one
+        err = L.spasm_row_sweep_tiles(P.data_ptr(), M, st.data_ptr(),
+                                      hist.data_ptr(), p, _cuda.stream_ptr(P))
     _cuda.check(err, "kernel B3 (spasm_row_sweep_tiles)")
     _cuda.launches["B3"] += 1
     return st[_SB * _SB:_SB * _SB + _SB]
@@ -289,12 +303,20 @@ def _rref_rows(X: torch.Tensor, p: int, nb: int, sweep) -> tuple:
     return X, pivcol
 
 
-def rref_rows_device(Xd: torch.Tensor, p: int, nb: int = 64):
+def rref_rows_device(Xd, p: int, nb: int = 64):
     """Xd: (B, M) device tensor, last column dead, B % 64 == 0,
     M % 2048 == 0; reduced IN PLACE.  Returns (Xd, pivcol) with pivcol
     (B,) int32 on the device (no host round trip yet).  Sweeps with B2 at
     M == 2048 and B3 at M >= 4096 in the d == 2 tier, with `step_sweep`
-    above it."""
+    above it.  A column-sharded Xd is gathered onto its first device,
+    reduced there and scattered back (see the module docstring)."""
+    if isinstance(Xd, mesh_ctx.Sharded):
+        X = mesh_ctx.gather(Xd, site=5)
+        X, pivcol = rref_rows_device(X, p, nb)
+        for t, b0, b1 in zip(Xd.shards, Xd.bounds()[:-1], Xd.bounds()[1:]):
+            t.copy_(X[:, b0:b1])
+        mesh_ctx.count(5, X[:, Xd.bounds()[1]:].numel() * X.element_size())
+        return Xd, pivcol
     B, M = Xd.shape
     if B % _SB or M % _TW:
         raise ValueError(f"rref_rows_device needs B % {_SB} == 0 and "
@@ -325,53 +347,96 @@ class CompactBasis:
         self.device = torch.device(device)
         self.dtype = storage_dtype(p)
         self.cap = max(cap, 1)
-        self.Rbuf = torch.zeros((self.cap, M), dtype=self.dtype,
-                                device=self.device)
+        self.mesh = mesh_ctx.current_mesh()
+        # under a mesh Rbuf is column-sharded like the blocks it reduces
+        if self.mesh is None:
+            self.Rbuf = torch.zeros((self.cap, M), dtype=self.dtype,
+                                    device=self.device)
+        else:
+            devs = mesh_ctx.shard_devices(self.mesh, 1)
+            self.Rbuf = mesh_ctx.Sharded(
+                [torch.zeros((self.cap, M // len(devs)), dtype=self.dtype,
+                             device=d) for d in devs], 1, self.mesh)
         self.jbuf = torch.full((self.cap,), M - 1, dtype=torch.int64,
                                device=self.device)
         self.jpos_host: List[np.ndarray] = []
         self.count = 0
         self.nrows = 0
 
-    def apply(self, X: torch.Tensor) -> torch.Tensor:
+    def _coeffs(self, X, cols: np.ndarray) -> List[torch.Tensor]:
+        """X[:, cols] on every column shard's device, X column-sharded
+        (the collective of apply and add): each shard takes the columns
+        it holds, one all-gather, and the pieces' order undone."""
+        b = np.asarray(X.bounds())
+        owner = np.searchsorted(b, cols, side="right") - 1
+        order = np.argsort(owner, kind="stable")
+        pieces = [t[:, torch.as_tensor(cols[order][owner[order] == j] - b[j],
+                                       device=t.device)]
+                  for j, t in enumerate(X.shards)]
+        back = np.argsort(order)
+        return [C[:, torch.as_tensor(back, device=C.device)]
+                for C in mesh_ctx.all_gather_cols(pieces, X.mesh, site=5)]
+
+    def apply(self, X):
         """Eliminate every basis pivot from X (B, M), in place.  One
         product per _CHUNK basis rows — exact because the basis is RREF."""
+        if self.mesh is not None and self.count:
+            jall = np.concatenate(self.jpos_host)
         for c0 in range(0, self.count, _CHUNK):
             c1 = min(self.count, c0 + _CHUNK)
-            C = X[:, self.jbuf[c0:c1]]
-            X.copy_(_submod(X, matmul_digits(C, self.Rbuf[c0:c1], self.p),
-                            self.p))
+            if self.mesh is None:
+                C = X[:, self.jbuf[c0:c1]]
+                X.copy_(_submod(X, matmul_digits(C, self.Rbuf[c0:c1],
+                                                 self.p), self.p))
+                continue
+            for t, C, R in zip(X.shards, self._coeffs(X, jall[c0:c1]),
+                               self.Rbuf.shards):
+                t.copy_(_submod(t, matmul_digits(C, R[c0:c1], self.p),
+                                self.p))
         return X
 
-    def add(self, Rd: torch.Tensor, jpos: np.ndarray):
+    def add(self, Rd, jpos: np.ndarray):
         """Append reduced rows (pivots at compacted columns jpos), after
         back-reducing the existing basis against them."""
         jpos = np.asarray(jpos, np.int64)
         jd = torch.as_tensor(jpos, device=self.device)
         for c0 in range(0, self.count, _CHUNK):
             c1 = min(self.count, c0 + _CHUNK)
-            Xc = self.Rbuf[c0:c1]
-            Xc.copy_(_submod(Xc, matmul_digits(Xc[:, jd], Rd, self.p),
-                             self.p))
+            if self.mesh is None:
+                Xc = self.Rbuf[c0:c1]
+                Xc.copy_(_submod(Xc, matmul_digits(Xc[:, jd], Rd, self.p),
+                                 self.p))
+                continue
+            Xc = self.Rbuf.map(lambda t: t[c0:c1])
+            for t, C, R in zip(Xc.shards, self._coeffs(Xc, jpos),
+                               Rd.shards):
+                t.copy_(_submod(t, matmul_digits(C, R, self.p), self.p))
         Kp = int(Rd.shape[0])
         need = self.count + Kp
         if need > self.cap:                     # rare: bucket padding
             grow = max(need - self.cap, _CHUNK)
-            self.Rbuf = torch.cat([self.Rbuf, torch.zeros(
-                (grow, self.M), dtype=self.dtype, device=self.device)])
+            self.Rbuf = mesh_ctx.smap(lambda t: torch.cat([t, torch.zeros(
+                (grow, t.shape[1]), dtype=self.dtype, device=t.device)]),
+                self.Rbuf)
             self.jbuf = torch.cat([self.jbuf, torch.full(
                 (grow,), self.M - 1, dtype=torch.int64,
                 device=self.device)])
             self.cap += grow
-        self.Rbuf[self.count:need] = Rd.to(self.dtype)
+        if self.mesh is None:
+            self.Rbuf[self.count:need] = Rd.to(self.dtype)
+        else:
+            for t, r in zip(self.Rbuf.shards, Rd.shards):
+                t[self.count:need] = r.to(self.dtype)
         self.jbuf[self.count:need] = jd
         self.count = need
         self.jpos_host.append(jpos)
         self.nrows += int(jpos.size)
 
     def export(self):
-        """(rows, jpos) of the whole basis: rows (count, M) device view,
-        jpos (count,) host (concatenated append order)."""
+        """(rows, jpos) of the whole basis: rows (count, M) device view
+        (column-sharded under a mesh), jpos (count,) host (concatenated
+        append order)."""
         if self.count == 0:
             return None, np.empty(0, np.int64)
-        return self.Rbuf[:self.count], np.concatenate(self.jpos_host)
+        return (mesh_ctx.smap(lambda t: t[:self.count], self.Rbuf),
+                np.concatenate(self.jpos_host))

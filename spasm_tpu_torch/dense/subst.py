@@ -87,16 +87,18 @@ def subst_waves(R: torch.Tensor, rows: np.ndarray, ref_ptr: np.ndarray,
     L = _cuda.lib()
     if L.spasm_subst_cols() != SUBST_COLS:
         raise RuntimeError("csrc/subst.cu kCols disagrees with SUBST_COLS")
-    if dtype == torch.int16:
-        err = L.spasm_subst_waves(R.data_ptr(), M, sched_d.data_ptr(), n,
-                                  nrefs, ngroups, nred_for(p), p,
-                                  _cuda.stream_ptr(R))
-        name = "B1"
-    else:
-        err = L.spasm_subst_waves_wide(R.data_ptr(), M, sched_d.data_ptr(),
-                                       n, nrefs, ngroups, nred_wide(p), p,
-                                       _cuda.stream_ptr(R))
-        name = "B1 wide"
+    # <<<>>> launches on the current device: make it R's
+    with torch.cuda.device(R.device):
+        if dtype == torch.int16:
+            err = L.spasm_subst_waves(R.data_ptr(), M, sched_d.data_ptr(), n,
+                                      nrefs, ngroups, nred_for(p), p,
+                                      _cuda.stream_ptr(R))
+            name = "B1"
+        else:
+            err = L.spasm_subst_waves_wide(
+                R.data_ptr(), M, sched_d.data_ptr(), n, nrefs, ngroups,
+                nred_wide(p), p, _cuda.stream_ptr(R))
+            name = "B1 wide"
     _cuda.check(err, f"kernel {name} (spasm_subst_waves)")
     _cuda.launches[name] += 1
     _cuda.calls[name] += 1

@@ -15,8 +15,10 @@ import numpy as np
 import torch
 
 from .csr import CSR
+from .dense.block import row_bucket
 from .dense.elim import _size_bucket
 from .dense.modp import _reduce31, device_field, dnorm64
+from .parallel import context as mesh_ctx
 
 
 def _densify(indptr: torch.Tensor, indices: torch.Tensor,
@@ -86,20 +88,44 @@ class DeviceCSR:
         dat[:nnz] = A.data[:nnz]
         self.indices = torch.as_tensor(ind, device=self.device)
         self.data = torch.as_tensor(dat, device=self.device)
+        # under a mesh: (mesh, per row shard (indptr, indices, data))
+        self._replicas: tuple = (None, None)
 
-    def densify(self, rows: np.ndarray, Bp: Optional[int] = None
-                ) -> torch.Tensor:
+    def _shard_arrays(self, mesh):
+        """The entry arrays on every row shard's device (once per
+        mesh)."""
+        if self._replicas[0] is not mesh:
+            reps = [mesh_ctx.replicated(t, mesh, site=6).shards
+                    for t in (self.indptr, self.indices, self.data)]
+            self._replicas = (mesh, list(zip(*reps)))
+        return self._replicas[1]
+
+    def densify(self, rows: np.ndarray, Bp: Optional[int] = None):
         """Dense (Bp, mp) int32 block of the given rows, balanced; rows
-        past len(rows) are zero.  Upload: len(rows) int64s."""
+        past len(rows) are zero.  Upload: len(rows) int64s.  Under an
+        active mesh the block comes back row-sharded: each row shard
+        gathers only its own rows' entries, on its own device."""
         rows = np.asarray(rows, np.int64)
         B = len(rows)
         if Bp is None:
-            Bp = _size_bucket(max(B, 1), 8)
+            Bp = row_bucket(max(B, 1))
         rp = np.zeros(Bp, np.int64)
         rp[:B] = rows
-        return _densify(self.indptr, self.indices, self.data,
-                        torch.as_tensor(rp, device=self.device), B,
-                        self.prime, Bp, self.mp, max(self.maxlen, 1))
+        mesh = mesh_ctx.current_mesh()
+        if mesh is None:
+            return _densify(self.indptr, self.indices, self.data,
+                            torch.as_tensor(rp, device=self.device), B,
+                            self.prime, Bp, self.mp, max(self.maxlen, 1))
+        devs = mesh_ctx.shard_devices(mesh, 0)
+        bs = Bp // len(devs)
+        shards = []
+        for i, (d, arrays) in enumerate(zip(devs, self._shard_arrays(mesh))):
+            shards.append(_densify(
+                *arrays, torch.as_tensor(rp[i * bs:(i + 1) * bs], device=d),
+                min(max(B - i * bs, 0), bs), self.prime, bs, self.mp,
+                max(self.maxlen, 1)))
+        mesh_ctx.count(6, 8 * Bp)
+        return mesh_ctx.Sharded(shards, 0, mesh)
 
     def spmv(self, XT: torch.Tensor) -> torch.Tensor:
         """Batched x*A for device-resident (S, n) coefficient rows."""

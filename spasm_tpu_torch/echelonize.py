@@ -54,6 +54,7 @@ from .dense.block import UEliminator, _unit_upper_inverse_log
 from .dense.elim import (_size_bucket, dense_lu, dense_lu_device, dense_rank,
                          dense_rref, dense_rref_device)
 from .dense.modp import matmul_digits
+from .parallel import context as mesh_ctx
 
 log = logging.getLogger("spasm_tpu_torch")
 if not log.handlers:
@@ -819,6 +820,9 @@ class _Engine:
         Y = dcsr.spmv(torch.as_tensor(XT, device=self.device))
         Yq = rb.eliminate_full_width(Y)         # (Sn, M) compact residue
         Yq = basis.apply(Yq)
+        if isinstance(Yq, mesh_ctx.Sharded):    # per shard, then the sum
+            return mesh_ctx.sum_count(
+                [torch.count_nonzero(t) for t in Yq.shards], site=4) == 0
         return not bool(torch.any(Yq != 0))
 
     @annotate("finish_device")
@@ -983,8 +987,12 @@ class _Engine:
                 Kp = _size_bucket(rr, 64)
                 hit_p = np.zeros(Kp, np.int64)
                 hit_p[:rr] = hit
-                Rd = Xq[torch.as_tensor(hit_p, device=dev)]
-                Rd[rr:] = 0
+
+                def pick(t):
+                    r = t[torch.as_tensor(hit_p, device=t.device)]
+                    r[rr:] = 0
+                    return r
+                Rd = mesh_ctx.smap(pick, Xq)
                 jpos = np.full(Kp, M - 1, np.int64)
                 jpos[:rr] = pivcol[hit]
                 basis.add(Rd, jpos)
@@ -1021,7 +1029,10 @@ class _Engine:
         real = jall < M - 1
         if np.any(real):
             jr = jall[real]
-            Rr = Rall[torch.as_tensor(np.nonzero(real)[0], device=dev)]
+            keep = np.nonzero(real)[0]
+            Rr = mesh_ctx.gather(mesh_ctx.smap(
+                lambda t: t[torch.as_tensor(keep, device=t.device)], Rall),
+                site=5)
             self.U.add_dense_rows_device(Rr, q_ext, q_ext[jr])
         tick("register")
         if prof:
@@ -1138,19 +1149,28 @@ class _Engine:
 
 
 def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
-               device="cuda") -> LU:
+               device=None) -> LU:
     """Echelon form of A, optionally a full PLUQ: U (rank x m CSR, unit
     first-entry pivots) and qinv; with opts.L also L and p (A == L @ U
     when opts.complete, which implies L).  U and L materialize lazily.
-    The finishers run on `device` (default "cuda"; the CPU only when
-    passed explicitly).  (reference: spasm_echelonize,
+    The finishers run on `device`: by default "cuda", or, inside
+    `parallel.use_mesh(mesh)`, sharded over the mesh with the engine's
+    own state on the mesh's first device (an explicit device of another
+    type then raises).  The CPU runs only when passed explicitly or
+    named by the mesh.  (reference: spasm_echelonize,
     spasm_echelonize.c:473-617)"""
     opts = EchelonizeOptions() if opts is None else dataclasses.replace(opts)
     if opts.complete:
         opts.L = True
     if opts.L:
         opts.enable_tall_and_skinny = False
-    device = torch.device(device)
+    mesh_dev = mesh_ctx.mesh_device()
+    if mesh_dev is not None:
+        if device is not None and torch.device(device).type != mesh_dev.type:
+            raise ValueError(f"echelonize: device={device} under a mesh of "
+                             f"{mesh_dev.type} devices")
+        device = mesh_dev
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         # small L-mode inputs never touch the device: fail here rather
         # than finish them on the host behind the caller's back
@@ -1205,10 +1225,15 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
     in_finisher = resume_phase in (ckpt.PHASE_FINISH, ckpt.PHASE_DENSE)
     # bytes per element of the reduced basis and the finisher's blocks
     # (int16 while p <= 65535); the wider tiers get a quarter of the
-    # width, as in the JAX package on one device
+    # width, as in the JAX package.  Under an active mesh the reduced
+    # basis shards its width over 'cols' (SP axis), so the width cap
+    # grows and the per-device basis bytes shrink by col_quantum().
     itemsize = 2 if A.prime <= 65535 else 4
-    wcap = opts.device_dense_width if itemsize == 2 \
-        else opts.device_dense_width // 4
+    kcols = mesh_ctx.col_quantum()
+    wcap = (opts.device_dense_width if itemsize == 2
+            else opts.device_dense_width // 4) * kcols
+    if mesh_dev is not None:
+        mesh_ctx.count(7)
     while not in_finisher and rnd < opts.max_round:
         if S.nnz == 0:
             status = 1
@@ -1226,7 +1251,8 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
         # once the free columns fit a dense device block, the remaining
         # rank belongs to the device finisher: no further sparse rounds
         nfree = m - eng.U.n
-        basis_bytes = (eng.U.n + min(S.n - npiv, nfree)) * nfree * itemsize
+        basis_bytes = (eng.U.n + min(S.n - npiv, nfree)) * nfree \
+            * itemsize // kcols
         if (not opts.L and opts.enable_dense
                 and 0 < nfree <= wcap
                 and (S.n - npiv) * nfree >= opts.device_dense_min
@@ -1301,7 +1327,7 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
                 and 0 < nfree <= wcap
                 and nrem * nfree >= opts.device_dense_min
                 and (eng.U.n + min(nrem, nfree)) * nfree * itemsize
-                <= opts.device_dense_mem
+                // kcols <= opts.device_dense_mem
                 and (density > opts.sparsity_threshold
                      or (opts.enable_tall_and_skinny
                          and aspect > opts.tall_and_skinny_ratio))))

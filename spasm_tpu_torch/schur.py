@@ -18,8 +18,10 @@ import numpy as np
 import torch
 
 from .csr import CSR, _concat_ranges
+from .dense.block import row_bucket
 from .dense.elim import _size_bucket
 from .hashing import PRNG
+from .parallel import context as mesh_ctx
 from .profiling import annotate
 from .triangular import sparse_triangular_solve
 
@@ -69,22 +71,41 @@ def _block_rows_dense(A: CSR, rows: np.ndarray) -> np.ndarray:
     return X
 
 
+def _scatter_rows(Bp: int, mp: int, device, rowrep, cols, vals
+                  ) -> torch.Tensor:
+    Xd = torch.zeros((Bp, mp), dtype=torch.int32, device=device)
+    if rowrep.size:
+        Xd[torch.as_tensor(rowrep, device=device),
+           torch.as_tensor(cols, device=device)] = torch.as_tensor(
+            vals, device=device)
+    return Xd
+
+
 def _block_rows_device(A: CSR, rows: np.ndarray, Bp: int, mp: int,
-                       device) -> torch.Tensor:
+                       device):
     """Densify the given rows of A on `device`: only the block's sparse
-    entries cross to it, then one scatter fills the (Bp, mp) block."""
+    entries cross to it, then one scatter fills the (Bp, mp) block.
+    Under an active mesh the block comes back row-sharded (Bp a multiple
+    of row_quantum): each row shard receives and scatters only its own
+    rows' entries, on its own device."""
     rows = np.asarray(rows, np.int64)
     starts = A.indptr[rows]
     lens = (A.indptr[rows + 1] - starts).astype(np.int64)
     gather = _concat_ranges(starts, lens)
-    Xd = torch.zeros((Bp, mp), dtype=torch.int32, device=device)
-    if gather.size:
-        rowrep = np.repeat(np.arange(len(rows), dtype=np.int64), lens)
-        Xd[torch.as_tensor(rowrep, device=device),
-           torch.as_tensor(A.indices[gather].astype(np.int64),
-                           device=device)] = torch.as_tensor(
-            A.data[gather].astype(np.int32), device=device)
-    return Xd
+    rowrep = np.repeat(np.arange(len(rows), dtype=np.int64), lens)
+    cols = A.indices[gather].astype(np.int64)
+    vals = A.data[gather].astype(np.int32)
+    mesh = mesh_ctx.current_mesh()
+    if mesh is None:
+        return _scatter_rows(Bp, mp, device, rowrep, cols, vals)
+    devs = mesh_ctx.shard_devices(mesh, 0)
+    bs = Bp // len(devs)
+    cut = np.searchsorted(rowrep, np.arange(len(devs) + 1) * bs)
+    shards = [_scatter_rows(bs, mp, d, rowrep[a:b] - i * bs, cols[a:b],
+                            vals[a:b])
+              for i, (d, a, b) in enumerate(zip(devs, cut[:-1], cut[1:]))]
+    mesh_ctx.count(6, 16 * rowrep.size)
+    return mesh_ctx.Sharded(shards, 0, mesh)
 
 
 def _origins(rows, p_in) -> np.ndarray:
@@ -92,11 +113,31 @@ def _origins(rows, p_in) -> np.ndarray:
     return np.asarray(p_in, np.int64)[rows] if p_in is not None else rows
 
 
-def _pack_nonzero_device(Xd: torch.Tensor, nrows: int, m: int):
+def _pack_nonzero_device(Xd, nrows: int, m: int):
     """The nonzero entries of Xd[:nrows, :m] (padded rows and the dead
     columns left out) as flat (rows, cols, vals) int32 numpy arrays,
     row-major sorted.  Only the packed entries cross to the host, in one
-    copy, never the dense block (torch.nonzero waits for Xd)."""
+    copy, never the dense block (torch.nonzero waits for Xd).  A sharded
+    Xd packs shard by shard: a row-sharded one (the Schur blocks, site
+    6) in row order already, a column-sharded one (the reduced basis's
+    blocks, site 5) merged back into row-major order."""
+    if isinstance(Xd, mesh_ctx.Sharded):
+        parts = []
+        for b0, shard in zip(Xd.bounds(), Xd.shards):
+            if Xd.axis == 0:
+                r, c, v = _pack_nonzero_device(
+                    shard, min(max(nrows - b0, 0), shard.shape[0]), m)
+                parts.append((r + b0, c, v))
+            else:
+                r, c, v = _pack_nonzero_device(
+                    shard, nrows, min(max(m - b0, 0), shard.shape[1]))
+                parts.append((r, c + b0, v))
+        r, c, v = (np.concatenate(x) for x in zip(*parts))
+        if Xd.axis == 1:
+            o = np.argsort(r, kind="stable")    # shards hold rising columns
+            r, c, v = r[o], c[o], v[o]
+        mesh_ctx.count(6 if Xd.axis == 0 else 5, 12 * r.size)
+        return r, c, v
     sub = Xd[:nrows, :m]
     rc = torch.nonzero(sub)                         # (cnt, 2), row-major
     packed = torch.stack([rc[:, 0].to(torch.int32), rc[:, 1].to(torch.int32),
@@ -140,7 +181,7 @@ def schur_sparse(A: CSR, p: np.ndarray, n: int, fact, L,
         counts = np.zeros(n, np.int64)
         for b0 in range(0, n, bs):
             idx = p[b0:b0 + bs].astype(np.int64)
-            Xd = dcsr.densify(idx, Bp=_size_bucket(len(idx), 8))
+            Xd = dcsr.densify(idx, Bp=row_bucket(len(idx)))
             Xd = eliminator.eliminate_device(Xd)
             r, c, v = _pack_nonzero_device(Xd, len(idx), m)
             piv = piv_mask[c]
@@ -224,9 +265,11 @@ def schur_dense_block_device(A: CSR, rows: np.ndarray,
     q = np.nonzero(qinv < 0)[0]
     B = len(rows)
     mp = _size_bucket(A.m + 1, 64)
-    Xd = _block_rows_device(A, rows, _size_bucket(B, 8), mp, dev)
+    Xd = _block_rows_device(A, rows, row_bucket(B), mp, dev)
     if eliminator.nrows > 0:
         Xd = eliminator.eliminate_device(Xd)
+    # under a mesh: the eliminated row shards back on the engine's device
+    Xd = mesh_ctx.gather(Xd, site=6)
     p_out = _origins(rows, p_in)
     if want_L:
         # the dead column mp - 1 is where padded gathers point: keep it 0
@@ -274,7 +317,8 @@ def schur_dense_randomized(A: CSR, p: np.ndarray, n: int, U: CSR,
     Xi = F.narray(X).astype(np.int32)
     if eliminator is not None and eliminator.nrows > 0 \
             and (return_device or N * m >= _DEVICE_THRESHOLD):
-        Xd = eliminator.eliminate_device(eliminator.pad_block(Xi))
+        Xd = mesh_ctx.gather(eliminator.eliminate_device(
+            eliminator.pad_block(Xi)), site=1)
         if return_device:
             return Xd[:N][:, torch.as_tensor(q, device=Xd.device)], q
         Xi = Xd[:N, :m].cpu().numpy()

@@ -581,3 +581,160 @@ def test_tools_fresh_processes_on_card(dev, tmp_path):
     assert sio.load_csr(io.BytesIO(r.stdout), 257)[0].n == 1
     assert _tool(["solve", "--modulus", "257", "--rhs", sing, "--matrix",
                   sing]).returncode == 0
+
+
+# -- the mesh on the card (spasm_tpu_torch/parallel/) --------------------
+
+def _card_mesh(dev, n=4):
+    """n x cuda:0: on one card the mesh repeats its device, so every
+    sharded stage, split shape and kernel launch runs on it."""
+    from spasm_tpu_torch.parallel import make_mesh
+    return make_mesh(devices=[dev] * n)
+
+
+@pytest.mark.parametrize("shape", [(300, 1000), (1100, 1500)])
+def test_mesh_eliminate_matches_single_card(dev, shape):
+    """The column-sharded `_eliminate` ((2, 2) mesh of cuda:0, B4 on the
+    owner shard of each 512-column block) in RREF and LU mode, through
+    dense_rref_device / dense_lu_device, bit-equal to the single-card
+    run; B4 launches in both modes."""
+    from spasm_tpu_torch.parallel import use_mesh
+    p = 42013
+    rng = np.random.default_rng(list(shape))
+    n, m = shape
+    X = (rng.integers(0, p, (n, 200)) @ rng.integers(0, p, (200, m))) % p
+    X = torch.from_numpy(np.where(X > p // 2, X - p, X).astype(np.int32))
+    Xd = X.to(dev)
+    want_r, want_lu = dense_rref_device(Xd, p), dense_lu_device(Xd, p)
+    before = dict(_cuda.launches)
+    with use_mesh(_card_mesh(dev)):
+        got_r, got_lu = dense_rref_device(Xd, p), dense_lu_device(Xd, p)
+    torch.cuda.synchronize()
+    assert np.array_equal(got_r[1], want_r[1])
+    assert torch.equal(got_r[0], want_r[0])
+    for a, b in zip(want_lu[:2], got_lu[:2]):
+        assert np.array_equal(a, b)
+    for a, b in zip(want_lu[2:], got_lu[2:]):
+        assert torch.equal(a, b)
+    assert all(_cuda.launches[k] > before[k] for k in ("B4 rref", "B4 lu"))
+
+
+@pytest.mark.parametrize("p", [42013, 4294967291])
+def test_mesh_reduced_basis_matches_single_card(dev, p):
+    """ReducedBasis.build under a (2, 2) mesh of cuda:0: B1 (B1 wide at
+    2^32 - 5) once per column shard on the same schedule; the gathered R
+    is the single-card R, and each shard is its plain version's."""
+    from spasm_tpu_torch.dense.reduced import ReducedBasis
+    from spasm_tpu_torch.echelonize import _Engine
+    from spasm_tpu_torch.parallel import use_mesh
+    B = matching_complex_boundary(10, 3)
+    if B.n < B.m:                            # the rank tool's orientation
+        B = B.transpose()
+    A = CSR(B.n, B.m, Field(p), B.indptr, B.indices, B.data)
+    eng = _Engine(A, EchelonizeOptions(), dev)
+    eng.extract_structural(A)
+    qfree = np.nonzero(eng.U.qinv < 0)[0]
+    store = eng.U.flat_store()
+    want = ReducedBasis(A.m, p, qfree, eng.U.n, dev)
+    want.build(*store)
+    key = "B1" if p <= 65535 else "B1 wide"
+    before = _cuda.launches[key]
+    with use_mesh(_card_mesh(dev)):
+        rb = ReducedBasis(A.m, p, qfree, eng.U.n, dev)
+        rb.build(*store)
+    torch.cuda.synchronize()
+    assert _cuda.launches[key] - before == 2          # cols = 2
+    assert torch.equal(rb.R.gather(), want.R)
+    plain = ReducedBasis(A.m, p, qfree, eng.U.n, "cpu")
+    plain.build(*store)
+    assert torch.equal(rb.R.shards[1].cpu(),
+                       plain.R[:, rb.M // 2:])
+
+
+@pytest.mark.parametrize("name,opts", [
+    ("mat364.sms", dict()), ("trefethen_500.sms", dict(device_dense_min=0)),
+    ("trefethen_2000.sms", dict(complete=True))])
+def test_mesh_echelonize_matches_single_card(dev, name, opts):
+    """The engine under a (2, 2) mesh of cuda:0 (the dense finisher, the
+    rank finisher, the complete PLUQ): rank, qinv, U, and L and p,
+    bit-equal to the single-card run."""
+    from spasm_tpu_torch.parallel import use_mesh
+    A, _ = sio.load_csr(MATRIX / name, 42013)
+    o = EchelonizeOptions(**opts)
+    want = echelonize(A, o, device="cuda")
+    with use_mesh(_card_mesh(dev)):
+        got = echelonize(A, o)
+    assert got.r == want.r and np.array_equal(got.qinv, want.qinv)
+    pairs = [(got.U, want.U)]
+    if o.complete:
+        assert np.array_equal(got.p, want.p)
+        pairs.append((got.L, want.L))
+    for a, b in pairs:
+        assert _same_csr(a, b)
+
+
+def _other_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: torch.cuda.device_count() is "
+                    f"{torch.cuda.device_count()}")
+    return torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_another_card(dev):
+    """Every kernel wrapper on tensors of cuda:1 while the current device
+    is cuda:0: each launch runs on its tensor's card (the wrappers set
+    the device; the launchers keep their attributes per device) and
+    equals its plain version."""
+    d1 = _other_card()
+    rng = np.random.default_rng(17)
+    p = 42013
+    with torch.cuda.device(0):
+        waves = random_waves(rng, 2000, 30, 8, p)
+        R0 = torch.from_numpy(rng.integers(-(p // 2), p // 2 + 1,
+                                           (2064, 2048))).to(torch.int16)
+        want = R0.clone()
+        _subst_waves_plain(want, *waves, p)
+        got = R0.to(d1)
+        subst_waves(got, *waves, p)
+        assert torch.equal(got.cpu(), want)
+        for M in (2048, 22528):
+            X = torch.from_numpy(b2_panel(rng, "rank40", 64, M, p))
+            want = X.clone()
+            wpc = _row_sweep_plain(want, p)
+            got = X.to(d1)
+            pc = row_sweep(got, p)
+            assert torch.equal(got.cpu(), want) and torch.equal(pc.cpu(), wpc)
+        X = torch.from_numpy(b3_panel(rng, "rank40", 8192, p))
+        want = X.clone()
+        wpc = _row_sweep_tiles_plain(want, p)
+        got = X.to(d1)
+        pc = row_sweep_tiles(got, p)
+        assert torch.equal(got.cpu(), want) and torch.equal(pc.cpu(), wpc)
+        for n in (1024, CLUSTER_ROWS + 1):
+            Xb, is_piv = panel_block(rng, n, p)
+            Xb = torch.from_numpy(Xb)
+            ip = torch.from_numpy(is_piv)
+            for rref in (True, False):
+                w = _panel_plain(Xb[:, 64:128], ip, p, 64, rref)
+                g = panel_pivots(Xb.to(d1)[:, 64:128], ip.to(d1), p, 64,
+                                 rref)
+                for a, b in zip(g, w):
+                    assert torch.equal(a.cpu(), b)
+        torch.cuda.synchronize(d1)
+
+
+def test_mesh_over_distinct_cards(dev):
+    """make_mesh() over every card: the engine's sharded stages with peer
+    copies between cards, bit-equal to the single-card run."""
+    from spasm_tpu_torch.parallel import make_mesh, use_mesh
+    _other_card()
+    for name, opts in (("mat364.sms", dict()),
+                       ("trefethen_2000.sms", dict(complete=True))):
+        A, _ = sio.load_csr(MATRIX / name, 42013)
+        o = EchelonizeOptions(**opts)
+        want = echelonize(A, o, device="cuda")
+        with use_mesh(make_mesh()):
+            got = echelonize(A, o)
+        assert got.r == want.r and _same_csr(got.U, want.U)
+        if o.complete:
+            assert np.array_equal(got.p, want.p) and _same_csr(got.L, want.L)
