@@ -124,7 +124,25 @@ Phases, each fatal on failure (no failure is caught):
      beside the single card's, its peak device memory and moved bytes,
      and the calls and bytes per site, are printed; then mk12.b4 on 1, 2
      and 4 x cuda:0, the cost of sharding on one card (not scaling);
- 11. a JSON line of the kernels (launches summed over the paths), then
+ 11. the `dense` surface, with the launch counts zeroed again: (a)
+     `dense.modp_matmul` at bench.py's bench_mxu shape (n = 8192 square,
+     p = 42013, d = 2; balanced int32 from a seeded Generator) on the
+     card, exact on 16 sampled rows (recomputed on the host, below), its
+     CUDA-event time over 10 calls after a warm one beside that of one
+     torch._int_mm of two 8192^2 int8 matrices: the GF(p) rate 2n^3 / t,
+     the int8 rate, and the GF(p) rate x 4 as a share of the int8 rate
+     (a d = 2 product costs four int8 products: bench.py's ceiling), with
+     the card's name and power limit, and the int8 rate again with B
+     column-major; (b) the same at p = 2^32 - 5 (d = 4), n = 4096; (c)
+     `modp_matmul_np` on (a)'s inputs equal to (a)'s product; (d)
+     `dense.dense_rref` and `dense.dense_lu` of a 1024 x 1024 matrix of
+     rank 1000 at 42013 on the card equal to their CPU run (B4 must
+     launch in both modes); (e) `profiling.start_trace` / `stop_trace`
+     around one `modp_matmul`: the trace must parse as JSON and hold a
+     CUDA kernel event.  The host check splits both operands into 16-bit
+     limbs, takes the four limb products in float64 (exact: every partial
+     sum is an integer below 2^53) and recombines them in Python ints;
+ 12. a JSON line of the kernels (launches summed over the paths), then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -167,13 +185,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return smi.strip().splitlines()[0]
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
+    log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.device_count()} card(s)")
     return torch.cuda.get_device_name(0)
@@ -1511,6 +1534,135 @@ def mesh_phase(mats, mk12, tref, pluq16k, rounds_ref) -> dict:
     return counts
 
 
+def _exact_rows(A: np.ndarray, B: np.ndarray, rows: np.ndarray,
+                p: int) -> np.ndarray:
+    """(A[rows] @ B) mod p, balanced, computed exactly on the host: A and
+    B (|values| < 2^31) split into 16-bit limbs, the four limb products
+    in float64 (each partial sum an integer below k * 2^32 < 2^53) and
+    recombined in Python ints."""
+    def limbs(x):
+        x = x.astype(np.int64)
+        return (x >> 16).astype(np.float64), (x & 0xFFFF).astype(np.float64)
+    ah, al = limbs(A[rows])
+    bh, bl = limbs(B)
+    big = [(u @ v).astype(np.int64).astype(object)
+           for u, v in ((ah, bh), (ah, bl), (al, bh), (al, bl))]
+    full = (big[0] << 32) + ((big[1] + big[2]) << 16) + big[3]
+    r = full % p
+    return np.where(r > p // 2, r - p, r).astype(np.int64)
+
+
+def _gfp_check(label, A, B, Z, p, rng) -> None:
+    rows = np.sort(rng.choice(A.shape[0], 16, replace=False))
+    want = _exact_rows(A, B, rows, p)
+    got = Z[torch.from_numpy(rows).to(Z.device)].cpu().numpy()
+    if not np.array_equal(got.astype(np.int64), want):
+        sys.exit(f"chip_smoke: {label} modp_matmul is not exact on its "
+                 f"sampled rows")
+
+
+def dense_surface_phase() -> dict:
+    """The `dense` exports and start_trace / stop_trace, with the launch
+    counts zeroed first (see the module docstring, phase 11)."""
+    import tempfile
+    from chip_checks import cuda_ms
+    from spasm_tpu_torch import _cuda
+    from spasm_tpu_torch.dense import dense_lu, dense_rref, modp_matmul
+    from spasm_tpu_torch.dense.modp import modp_matmul_np
+    from spasm_tpu_torch.profiling import start_trace, stop_trace
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    smi = card()
+    _cuda.reset_launches()
+
+    # (a) bench_mxu's shape (bench.py:369, :385): n = 8192, d = 2
+    n = 8192
+    A = rng.integers(-(P // 2), P // 2 + 1, (n, n), dtype=np.int32)
+    B = rng.integers(-(P // 2), P // 2 + 1, (n, n), dtype=np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    Z = modp_matmul(A, B, P)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _gfp_check("(a)", A, B, Z, P, rng)
+    Ad, Bd = torch.from_numpy(A).to(dev), torch.from_numpy(B).to(dev)
+    ms = cuda_ms(lambda: modp_matmul(Ad, Bd, P), 10)
+    I8 = torch.from_numpy(rng.integers(-128, 128, (n, n),
+                                       dtype=np.int8)).to(dev)
+    ms8 = cuda_ms(lambda: torch._int_mm(I8, I8), 10)
+    # the same product with B column-major (what _mm8 does not pass)
+    I8c = I8.t().contiguous().t()
+    ms8c = cuda_ms(lambda: torch._int_mm(I8, I8c), 10)
+    gf, i8 = 2 * n ** 3 / ms / 1e9, 2 * n ** 3 / ms8 / 1e9   # T op/s
+    log(f"(a) modp_matmul {n}^2 at p = {P} (d = 2): {ms:.3f} ms, GF(p) "
+        f"{gf:.1f} T op/s, exact on 16 sampled rows, peak device memory "
+        f"{peak:.2f} GiB; torch._int_mm int8 {n}^2 (B row-major, as "
+        f"_mm8 passes it): {ms8:.3f} ms, {i8:.1f} T op/s "
+        f"({100 * i8 / 1979:.1f} % of the 1979 T op/s int8 peak); GF(p) "
+        f"x 4 = {100 * 4 * gf / i8:.1f} % of the int8 rate; B "
+        f"column-major: {ms8c:.3f} ms, {2 * n ** 3 / ms8c / 1e9:.1f} T op/s "
+        f"[{smi}]")
+    # (c) the numpy wrapper on (a)'s inputs
+    if not np.array_equal(modp_matmul_np(A, B, P), Z.cpu().numpy()):
+        sys.exit("chip_smoke: (c) modp_matmul_np differs from (a)")
+    log("(c) modp_matmul_np equal to (a)'s product")
+    del Z, Bd, I8, I8c, B
+
+    # (b) the d = 4 tier at n = 4096
+    n4 = 4096
+    A4 = rng.integers(-(P4 // 2), P4 // 2 + 1, (n4, n4), dtype=np.int64
+                      ).astype(np.int32)
+    B4 = rng.integers(-(P4 // 2), P4 // 2 + 1, (n4, n4), dtype=np.int64
+                      ).astype(np.int32)
+    Z4 = modp_matmul(A4, B4, P4)
+    _gfp_check("(b)", A4, B4, Z4, P4, rng)
+    A4d, B4d = torch.from_numpy(A4).to(dev), torch.from_numpy(B4).to(dev)
+    ms4 = cuda_ms(lambda: modp_matmul(A4d, B4d, P4), 10)
+    log(f"(b) modp_matmul {n4}^2 at p = 2^32 - 5 (d = 4): {ms4:.3f} ms, "
+        f"GF(p) {2 * n4 ** 3 / ms4 / 1e9:.2f} T op/s, exact on 16 sampled "
+        f"rows [{smi}]")
+    del Z4, A4d, B4d
+
+    # (d) dense_rref / dense_lu through the exports: 1024 x 1024, rank 1000
+    X = rng.integers(-(P // 2), P // 2 + 1, (1024, 1024), dtype=np.int32)
+    X[1000:] = X[:24]
+    for name, fn in (("dense_rref", dense_rref), ("dense_lu", dense_lu)):
+        t0 = time.time()
+        want = fn(X, P, device="cpu")
+        t_cpu = time.time() - t0
+        fn(X, P)                                 # warm
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = fn(X, P)
+        t_card = time.time() - t0
+        rank = len(got[1]) if name == "dense_rref" else got[0]
+        if rank != 1000 or not all(np.array_equal(a, b)
+                                   for a, b in zip(got, want)):
+            sys.exit(f"chip_smoke: (d) {name} on the card differs from its "
+                     f"CPU run (rank {rank})")
+        log(f"(d) {name} 1024^2 rank 1000: {t_card:.3f} s on the card "
+            f"(warm), {t_cpu:.1f} s on the CPU, equal")
+
+    # (e) a profiler trace of one modp_matmul
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        start_trace(tmp)
+        modp_matmul(Ad, Ad, P)
+        torch.cuda.synchronize()
+        stop_trace()
+        path = pathlib.Path(tmp) / "trace.json"
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        log(f"(e) start_trace / stop_trace: {path.stat().st_size} bytes, "
+            f"{len(events)} events, {kernels} CUDA kernel events")
+        if not kernels:
+            sys.exit("chip_smoke: (e) the trace holds no CUDA kernel event")
+    counts = dict(_cuda.launches)
+    _launched(counts, ("B4 rref", "B4 lu"), "the dense surface")
+    log(f"the dense surface: {time.time() - t_phase:.1f} s")
+    return counts
+
+
 def main(argv) -> int:
     if argv[:1] == ["--preempted"]:
         preempted_child(*argv[1:3])
@@ -1530,12 +1682,14 @@ def main(argv) -> int:
     counts8 = checkpoint_phase(rounds_ref)
     counts9 = mesh_phase(mats, mk12, tref, pluq16k, rounds_ref)
     del pluq16k, mk12
+    counts10 = dense_surface_phase()
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "spasm_tpu"))
     if leaked:
         sys.exit(f"chip_smoke: JAX modules were imported: {leaked[:5]}")
-    # launches: the sum over the paths (phases 4-10)
-    paths = (counts, counts4, counts5, counts6, counts7, counts8, counts9)
+    # launches: the sum over the paths (phases 4-11)
+    paths = (counts, counts4, counts5, counts6, counts7, counts8, counts9,
+             counts10)
     for k, keys in (("B1", ["B1"]), ("B1 wide", ["B1 wide"]), ("B2", ["B2"]),
                     ("B3", ["B3"]), ("B4", ["B4 rref", "B4 lu"])):
         kernels[k]["launches"] = sum(c[key] for c in paths for key in keys)

@@ -95,6 +95,15 @@ def dnorm64(x: torch.Tensor, p: int) -> torch.Tensor:
     return torch.where(r > p // 2, r - p, r)
 
 
+def dnorm(x, p, rounds: int = 2):
+    """Balanced representative of x mod p, int32 out.  `rounds` (the JAX
+    package's float-reciprocal Barrett passes) is kept for the signature
+    only: torch.remainder is exact for every int64, and two Barrett
+    rounds are exact in their domain (|x| <= p * 2^30), so the results
+    are equal there."""
+    return dnorm64(x, p).to(torch.int32)
+
+
 def mulmod(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     """Balanced product of balanced operands (int64; exact for p < 2^32)."""
     return dnorm64(a.to(torch.int64) * b.to(torch.int64), p)
@@ -267,3 +276,24 @@ def _matmul_wide(A: torch.Tensor, B: torch.Tensor, p: int,
         if (c + 1) % 64 == 0:
             acc = dnorm64(acc, p)
     return dnorm64(acc, p).to(torch.int32)
+
+
+def modp_matmul(A, B, p: int, device="cuda"):
+    """Exact (A @ B) mod p, balanced int32 in and out (host-facing):
+    numpy arrays or tensors, placed on `device`, where the product stays.
+    Runs on the card unless the caller passes device="cpu"; without CUDA
+    it raises rather than run on the host."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("modp_matmul: CUDA is not available; pass "
+                           "device='cpu' to run on the host")
+    return matmul_digits(torch.as_tensor(A, device=device),
+                         torch.as_tensor(B, device=device), p)
+
+
+def modp_matmul_np(A: np.ndarray, B: np.ndarray, p: int,
+                   device="cuda") -> np.ndarray:
+    """Host wrapper: numpy in/out."""
+    A = np.ascontiguousarray(A, dtype=np.int32)
+    B = np.ascontiguousarray(B, dtype=np.int32)
+    return modp_matmul(A, B, p, device).cpu().numpy()

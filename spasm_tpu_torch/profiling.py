@@ -19,6 +19,9 @@ import torch
 
 log = logging.getLogger("spasm_tpu_torch")
 
+_profiler: Optional[torch.profiler.profile] = None
+_trace_dir: Optional[str] = None
+
 
 @contextlib.contextmanager
 def phase(name: str) -> Iterator[None]:
@@ -40,18 +43,41 @@ def annotate(name: str):
     return deco
 
 
+def start_trace(trace_dir: str) -> None:
+    """Begin capturing a profiler trace: host activity, and the card's
+    where CUDA is available."""
+    global _profiler, _trace_dir
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    _profiler = torch.profiler.profile(activities=acts)
+    _profiler.start()
+    _trace_dir = trace_dir
+    log.info("[trace] capturing profiler trace to %s", trace_dir)
+
+
+def stop_trace() -> None:
+    """End the capture and write trace_dir/trace.json (no-op without a
+    start)."""
+    global _profiler, _trace_dir
+    if _profiler is None:
+        return
+    prof, path = _profiler, os.path.join(_trace_dir, "trace.json")
+    _profiler = _trace_dir = None
+    prof.stop()
+    prof.export_chrome_trace(path)
+    log.info("[trace] profiler trace written to %s", path)
+
+
 @contextlib.contextmanager
 def maybe_trace(trace_dir: Optional[str]) -> Iterator[None]:
     """Capture a profiler trace into trace_dir/trace.json when set."""
     if trace_dir is None:
         yield
         return
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    start_trace(trace_dir)
+    try:
         yield
-    path = os.path.join(trace_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    log.info("[trace] profiler trace written to %s", path)
+    finally:
+        stop_trace()

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import io as _io
+import re
 import sys
 import warnings
 from typing import Optional, Tuple
@@ -27,19 +28,32 @@ from .csr import COO, CSR
 _IO_CHUNK = 1 << 25          # 32 MB read granularity
 
 
-def _fast_ints(text: str) -> np.ndarray:
-    """Whitespace-separated integers via the C parser (~10x loadtxt)."""
+_TOKEN = re.compile(rb"\S+")
+_INT = re.compile(rb"[+-]?\d+")
+
+
+def _fast_ints(data: bytes) -> Tuple[np.ndarray, Optional[int]]:
+    """Whitespace-separated integers via the C parser (~10x loadtxt).
+
+    Returns (the integers, None), or, where a token is not an integer,
+    (the integers before it, its offset in data).  numpy signals a parse
+    that stops short with a DeprecationWarning (a ValueError in later
+    versions) and returns the integers it read; that is made an error
+    here, and the text is parsed again up to the bad token, keeping an
+    integer that starts it ("4x" reads 4), as numpy does."""
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        return np.fromstring(text, dtype=np.int64, sep=" ")
-
-
-def _parse_int_table(text: str) -> np.ndarray:
-    """Whitespace-separated integers -> (k, 3) int64 array."""
-    flat = _fast_ints(text) if text.strip() else np.empty(0, np.int64)
-    if flat.size % 3:
-        raise ValueError("malformed entry line (expected 3 fields)")
-    return flat.reshape(-1, 3)
+        warnings.simplefilter("error", DeprecationWarning)
+        try:
+            return np.fromstring(data.decode("ascii", errors="replace"),
+                                 dtype=np.int64, sep=" "), None
+        except (DeprecationWarning, ValueError):
+            pass
+    bad = next((t.start() for t in _TOKEN.finditer(data)
+                if not _INT.fullmatch(t.group())), len(data))
+    lead = _INT.match(data, bad)
+    end = lead.end() if lead else bad
+    return (np.fromstring(data[:end].decode("ascii"), dtype=np.int64,
+                          sep=" "), bad)
 
 
 class _IntStream:
@@ -56,6 +70,8 @@ class _IntStream:
         self.hasher = hasher
         self._carry = b""
         self.eof = False
+        self.nread = 0              # bytes read from the stream
+        self.stopped = None         # offset of a token next_ints refused
 
     def _read(self) -> bytes:
         buf = self.stream.read(_IO_CHUNK)
@@ -65,6 +81,7 @@ class _IntStream:
             self.eof = True
         elif self.hasher is not None:
             self.hasher.update(buf)
+        self.nread += len(buf)
         return buf
 
     def readline(self) -> str:
@@ -78,7 +95,11 @@ class _IntStream:
         return line.decode("ascii", errors="replace")
 
     def next_ints(self) -> Optional[np.ndarray]:
-        """Next flat batch of integers (None at EOF)."""
+        """Next flat batch of integers (None at EOF).  Where a token is
+        not an integer, the batch ends before it, the rest of the batch's
+        text is dropped, and `stopped` holds the token's offset in the
+        stream (else None); the caller decides whether the stop is an
+        error."""
         while True:
             buf = self._read()
             if not buf:
@@ -95,7 +116,10 @@ class _IntStream:
                     continue
                 data, self._carry = data[:cut], data[cut:]
             if data.strip():
-                return _fast_ints(data.decode("ascii", errors="replace"))
+                flat, bad = _fast_ints(data)
+                self.stopped = None if bad is None else \
+                    self.nread - len(self._carry) - len(data) + bad
+                return flat
 
     def drain(self):
         """Consume the rest of the stream (fingerprint = whole file)."""
@@ -149,6 +173,10 @@ def load_triplet(f, prime: int = 42013,
                 batches.append(flat[:take].reshape(-1, 3))
                 leftover = flat[take:]
                 got += take
+                if got < 3 * nnz and st.stopped is not None:
+                    raise ValueError(
+                        f"MatrixMarket entry at byte {st.stopped} is not "
+                        f"an integer ({got // 3} of {nnz} entries read)")
         else:
             fields = header.split()
             if len(fields) != 3:
@@ -172,6 +200,10 @@ def load_triplet(f, prime: int = 42013,
                 if markers.size:
                     tab = tab[:markers[0]]
                     done = True
+                elif st.stopped is not None:
+                    raise ValueError(
+                        f"SMS entry at byte {st.stopped} is not an integer "
+                        "(before the end marker)")
                 batches.append(tab)
         st.drain()
         digest = hasher.digest() if hasher is not None else None

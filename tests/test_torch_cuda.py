@@ -27,8 +27,10 @@ from spasm_tpu_torch import (CSR, EchelonizeOptions, _cuda,
                              rank_certificate_verify, rref, sio)
 from spasm_tpu_torch.checkpoint import matrix_fingerprint
 from spasm_tpu_torch.certificate import factorization_verify
+from spasm_tpu_torch.dense import modp_matmul
 from spasm_tpu_torch.dense.elim import dense_lu_device, dense_rref_device
-from spasm_tpu_torch.dense.modp import matmul_digits, storage_dtype
+from spasm_tpu_torch.dense.modp import (matmul_digits, modp_matmul_np,
+                                        storage_dtype)
 from spasm_tpu_torch.dense.panel import (CLUSTER_ROWS, _panel_plain,
                                          panel_pivots, panel_variant)
 from spasm_tpu_torch.dense.rowrref import (CLUSTER_COLS, TILE_W,
@@ -341,6 +343,22 @@ def test_matmul_digits_card_matches_cpu(dev, shape, p):
     want = matmul_digits(A, B, p)
     got = matmul_digits(A.to(dev), B.to(dev), p)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("p", [42013, 4294967291])
+@pytest.mark.parametrize("shape", [(33, 57, 29), (1024, 1024, 1024)])
+def test_modp_matmul_card_matches_cpu(dev, shape, p):
+    """The `dense` export on its default device (the card) against its
+    CPU run, d = 2 and d = 4; numpy in, the product left on the card."""
+    n, k, m = shape
+    rng = np.random.default_rng([p % 1000, n])
+    A = rng.integers(-(p // 2), p // 2 + 1, (n, k)).astype(np.int32)
+    B = rng.integers(-(p // 2), p // 2 + 1, (k, m)).astype(np.int32)
+    got = modp_matmul(A, B, p)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    want = modp_matmul(A, B, p, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(modp_matmul_np(A, B, p), want.numpy())
 
 
 @pytest.mark.parametrize("name", ["mat364.sms", "lower_trapeze.sms",
