@@ -9,8 +9,11 @@ Phases, each fatal on failure (no failure is caught):
      at once) and the host native library (g++) from this checkout, and
      prints the seconds taken;
   3. kernels: B1 (substitution; on a synthetic schedule and on mk13.b5's
-     own, from its structural pivots; its int32-storage instantiation, "B1
-     wide", on mk12.b4's round-0 schedule at p = 65537 and 2^32 - 5), B2 (leftmost row sweep: the cluster
+     own, from its structural pivots; its int32-storage kernel, "B1
+     wide", on mk12.b4's round-0 schedule at p = 65537 and 2^32 - 5, at
+     M = 20480 and cut to M = 16896, with its grid, resident blocks per
+     SM and a bound by operations beside the one by bytes), B2 (leftmost
+     row sweep: the cluster
      variant at M = 2048, the pair at M = 22528) and B3 (tiled row sweep,
      on a rank-40 and on a full-rank panel) and B4 (the panel kernel, RREF
      and LU mode, the variant its n selects) against their plain torch
@@ -173,10 +176,15 @@ DM_BLOCKS = 15002                           # BENCH_r05.json dm_blocks (seeded)
 P4 = 4294967291                             # 2^32 - 5, the top of d = 4
 P3 = 65537                                  # the first int32-stored prime
 # bounds: device memory rate, and the float32 rate outside the tensor
-# cores taken for the kernels' int32 CUDA-core work (no int32 peak is
-# listed for the card), NVIDIA H100 SXM
+# cores taken for the kernels' int32 CUDA-core work, NVIDIA H100 SXM;
+# B1 wide's 64-bit arithmetic against the INT32 rate instead: 64 INT32
+# lanes an SM x 132 SMs x 1.98 GHz, 16.7 T instructions/s (33.5 T INT32
+# op/s with a multiply-add counted twice)
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+INT32_INSTR_PER_S = 16.7e12
+WIDE_PAIR_M = 16896                 # 64 x 264 columns: two 64-column
+                                    # blocks on each of 132 SMs
 WALLS = {}                                  # _timed_rank's walls by label
 PROFILES = {}                               # and its stage clocks
 
@@ -212,21 +220,22 @@ def build_phase() -> None:
     log(f"build: CUDA kernels {t1 - t0:.1f} s "
         f"(nvcc {_cuda.build_seconds}), host pivot library "
         f"{time.time() - t1:.1f} s")
-    kernel = None                       # ptxas -v: registers, shared memory
+    kernel, spills = None, ""   # ptxas -v: registers, shared memory, spills
     for line in _cuda.build_log.splitlines():
         if "entry function" in line:
             mangled = line.split("'")[1]
-            kernel = next((k for k in ("subst_waves", "sweep_find",
+            kernel = next((k for k in ("subst_waves", "subst_wide",
+                                       "sweep_find",
                                        "sweep_update", "sweep_cluster",
                                        "tile_sweep", "panel_cluster",
                                        "panel_coop")
                            if k in mangled), mangled)
             if "ILb1E" in mangled:      # the template with phase stamps
                 kernel += " (stamped)"
-            if kernel == "subst_waves":   # the storage instantiations
-                kernel += " (int32)" if "Wide" in mangled else " (int16)"
         elif kernel and "Used" in line:
-            log(f"  {kernel}: {line.split(':', 1)[1].strip()}")
+            log(f"  {kernel}: {line.split(':', 1)[1].strip()}; {spills}")
+        elif "spill stores" in line:
+            spills = line.strip()
 
 
 def _max_err(got, want) -> int:
@@ -238,7 +247,8 @@ def _max_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def _record(name, src, replaces, got, want, nbytes, ops):
+def _record(name, src, replaces, got, want, nbytes, ops,
+            ops_per_s=CORE_OPS_PER_S):
     """Holds got against want (tolerance 0) and starts the kernel's JSON
     record, with its bound from this input's bytes and operations."""
     err = max(_max_err(g, w) for g, w in zip(got, want))
@@ -246,7 +256,7 @@ def _record(name, src, replaces, got, want, nbytes, ops):
         sys.exit(f"chip_smoke: {name} disagrees with its plain version "
                  f"(max abs err {err})")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": None, "plain_ms": None, "bound_ms": max(t_bytes, t_ops),
@@ -307,20 +317,41 @@ def b4_phase_split(P0, ip, rref: bool, variant: str, want, mode: str):
         + f"; total {(st[11] - st[6]) / 1e3:.3f} us")
 
 
+def _wide_ops(ref_ptr, coef, M: int, p: int) -> int:
+    """The int32-pipe instructions B1 wide issues on this schedule: per
+    column, 4 a product (a 32 x 32 -> 64 multiply, 2; a 64-bit subtract,
+    2), 5 a partial reduction after every nred products (the wrapper's
+    nred for these coefficients; a 64-bit multiply, 3; a subtract, 2) and
+    11 a row's final one (two 64-bit corrections more); FpWide's
+    conversions and FP64 multiply run on the FP64 pipe and are not
+    counted."""
+    from spasm_tpu_torch.dense.subst import nred_wide
+    k = np.diff(np.asarray(ref_ptr, np.int64))
+    nred = nred_wide(p, int(np.abs(np.asarray(coef, np.int64)).max(
+        initial=0)))
+    return M * int(4 * k.sum() + 5 * (k // nred).sum() + 11 * k.size)
+
+
 def b1_line(label, R0, waves, reps: int, p: int = P) -> dict:
     """B1 (one launch per call) against its plain version on R0 and one
     schedule: held bit-equal, timed (each timed call re-substitutes a
     copy in place), with the bound from this schedule's own bytes: every
     live row read and written once, every referenced row read once, the
     schedule arrays read once; a product and a sum per reference and
-    column.  R0's storage selects the instantiation: int16 B1, or int32
-    "B1 wide" (p > 65535)."""
+    column.  R0's storage selects the kernel: int16 B1, or int32 "B1
+    wide" (p > 65535), whose line adds its grid, its resident blocks per
+    SM, a bound by its int32-pipe instructions (`_wide_ops`) and, at
+    M > WIDE_PAIR_M, its time on R0's first WIDE_PAIR_M columns (held to
+    the full result's: a column depends on the same column alone)."""
     from chip_checks import cuda_ms
     from spasm_tpu_torch import _cuda
-    from spasm_tpu_torch.dense.subst import _subst_waves_plain, subst_waves
+    from spasm_tpu_torch.dense.subst import (SUBST_COLS, _subst_waves_plain,
+                                             subst_waves, wide_plan,
+                                             wide_resident)
     rows, ref_ptr, refs, coef, bounds = waves
     M = R0.shape[1]
-    key = "B1" if R0.dtype == torch.int16 else "B1 wide"
+    wide = R0.dtype != torch.int16
+    key = "B1 wide" if wide else "B1"
     got = R0.clone()
     before = _cuda.launches[key]
     subst_waves(got, *waves, p)
@@ -329,9 +360,32 @@ def b1_line(label, R0, waves, reps: int, p: int = P) -> dict:
     _subst_waves_plain(want, *waves, p)
     touched = np.union1d(rows, refs).size + rows.size
     nbytes = touched * M * R0.element_size() + sum(a.nbytes for a in waves)
-    rec = _record(f"{key} subst_waves", "spasm_tpu_torch/csrc/subst.cu",
+    ops = _wide_ops(ref_ptr, coef, M, p) if wide else 2 * refs.size * M
+    rec = _record(f"{key} subst_{'wide' if wide else 'waves'}",
+                  "spasm_tpu_torch/csrc/subst.cu",
                   "spasm_tpu/dense/subst_pallas.py:68", [got], [want],
-                  nbytes, 2 * refs.size * M)
+                  nbytes, ops,
+                  INT32_INSTR_PER_S if wide else CORE_OPS_PER_S)
+    extra = ""
+    if wide:
+        bps, sms = wide_resident(torch.cuda.current_device())
+        grid, per = wide_plan(M // SUBST_COLS, bps * sms)
+        extra = (f"; grid {grid} blocks ({per} chunk(s) of {SUBST_COLS} "
+                 f"columns each at most), {bps} resident blocks per SM x "
+                 f"{sms} SMs; bounds {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
+                 f"ms by bytes, {ops / INT32_INSTR_PER_S * 1e3:.4f} ms by "
+                 f"{ops} int32 instructions")
+        if M > WIDE_PAIR_M:
+            cut = R0[:, :WIDE_PAIR_M].contiguous()
+            subst_waves(cut, *waves, p)
+            if not torch.equal(cut, want[:, :WIDE_PAIR_M]):
+                sys.exit(f"chip_smoke: {key} at M = {WIDE_PAIR_M} disagrees "
+                         f"with the full result's columns")
+            ms_cut = cuda_ms(lambda: subst_waves(cut, *waves, p), reps)
+            g_cut, _ = wide_plan(WIDE_PAIR_M // SUBST_COLS, bps * sms)
+            extra += (f"; at M = {WIDE_PAIR_M} (grid {g_cut}) {ms_cut:.3f} "
+                      f"ms, bit-equal")
+            del cut
     del want
     ms = cuda_ms(lambda: subst_waves(got, *waves, p), reps)
     plain_ms = cuda_ms(lambda: _subst_waves_plain(got, *waves, p), 1)
@@ -340,7 +394,7 @@ def b1_line(label, R0, waves, reps: int, p: int = P) -> dict:
         f"{refs.size / max(rows.size, 1):.2f} references per row, M={M}, "
         f"{R0.dtype}; one-launch variant, {per_call} launch per call; "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), bit-equal")
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), bit-equal{extra}")
     if per_call != 1:
         sys.exit(f"chip_smoke: {key} made {per_call} launches in one call")
     return dict(rec, ms=ms, plain_ms=plain_ms)
@@ -410,7 +464,7 @@ def kernel_phase(mats) -> dict:
                                  EchelonizeOptions())
     b1_real_schedule(mats["mk12.b4"], "mk12.b4",
                      EchelonizeOptions(device_dense_width=0))
-    # the int32-storage instantiation on the same schedule, d = 3 and 4
+    # the int32-storage kernel on the same schedule, d = 3 and 4
     b1_real_schedule(mats["mk12.b4"], "mk12.b4",
                      EchelonizeOptions(device_dense_width=0), P3)
     out["B1 wide"] = b1_real_schedule(mats["mk12.b4"], "mk12.b4",

@@ -10,7 +10,7 @@ entry returns cudaGetLastError(), which `check` turns into an exception.
 
 `launches` counts the CUDA kernel launches each wrapper issued: B1 the
 substitution sweep (dense/subst.py, one per call; "B1 wide" its
-int32-storage instantiation, p > 65535), B2 and B3 the row
+int32-storage kernel, p > 65535), B2 and B3 the row
 sweeps (dense/rowrref.py; B2 counted again by variant, "B2 cluster" one
 launch per sweep, "B2 pair" two per Jordan step), B4 the panel steps of
 the column-sweep elimination (dense/panel.py), counted apart in RREF and
@@ -114,7 +114,9 @@ def lib() -> ctypes.CDLL:
     L.spasm_subst_waves.argtypes = [vp, ci, vp, ci, ci, ci, ci, ci, vp]
     L.spasm_subst_waves_wide.restype = ci
     L.spasm_subst_waves_wide.argtypes = [vp, ci, vp, ci, ci, ci, ci,
-                                         ctypes.c_longlong, vp]
+                                         ctypes.c_longlong, ci, vp]
+    L.spasm_subst_blocks_per_sm.restype = ci
+    L.spasm_subst_blocks_per_sm.argtypes = [ci]
     L.spasm_subst_cols.restype = ci
     L.spasm_subst_cols.argtypes = []
     L.spasm_row_sweep.restype = ci

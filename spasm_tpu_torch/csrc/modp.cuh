@@ -8,7 +8,7 @@
 // digit tier, p <= 65279, where 2 * (p/2)^2 < 2^31 so every
 // division-free update fits an int32 lane (reduce31 also serves B1's
 // int16 storage up to p = 65535).  FpWide (below) is the field above
-// that, p <= 2^32 - 5, for the int32-storage instantiation of B1.
+// that, p <= 2^32 - 5, for B1 wide (the int32-storage kernel).
 #pragma once
 
 #include <cstdint>
@@ -81,28 +81,29 @@ struct Fp {
 
 // The wide field, 65535 < p <= 2^32 - 5 (B1 on int32 storage): balanced
 // values fit int32, products of two are formed in 64 bits (< 2^47 at
-// d = 3, < 2^62 at d = 4) and summed in int64 before a reduction.
+// d = 3, < 2^62 at d = 4) and summed in int64 before a reduction.  The
+// quotient comes from FP64: for |x| <= 2^63 - p, x rounded to a double
+// (off by at most 2^9), times 1/p rounded, rounded again, lies within
+// 2560 / p of x / p, so q = rint(x * (1/p)) is x's nearest quotient or
+// one off it, and x - q p lies within p/2 + 2560 (`part`, what a partial
+// sum needs); one correction on each side makes it balanced (`red`).
+// Two conversions on the FP64 pipe and one 64-bit multiply: a 64-bit
+// Barrett reduction needs __umul64hi, four 32-bit multiplies here.
 struct FpWide {
-  unsigned long long p, mu, off;
-  long long half;
+  long long p, half;
+  double inv;
   __host__ __device__ explicit FpWide(long long p_)
-      : p(static_cast<unsigned long long>(p_)),
-        mu(~0ull / static_cast<unsigned long long>(p_)),
-        off((1ull << 63) / static_cast<unsigned long long>(p_) *
-            static_cast<unsigned long long>(p_)),
-        half((p_ - 1) >> 1) {}
-  // Balanced x mod p for x >= -off, off the largest multiple of p <=
-  // 2^63 (so any int64 x with |x| <= 2^63 - p): u = x + off lies in
-  // [0, 2^64), and the Barrett quotient by mu = floor((2^64 - 1) / p)
-  // (__umul64hi) is short by at most 2.
+      : p(p_), half((p_ - 1) >> 1), inv(1.0 / static_cast<double>(p_)) {}
+  // x - q p, |.| <= p/2 + 2560, for |x| <= 2^63 - p.
+  __device__ __forceinline__ long long part(long long x) const {
+    return x - __double2ll_rn(static_cast<double>(x) * inv) * p;
+  }
+  // Balanced x mod p for |x| <= 2^63 - p.
   __device__ __forceinline__ int red(long long x) const {
-    const unsigned long long u = static_cast<unsigned long long>(x) + off;
-    const unsigned long long q = __umul64hi(u, mu);
-    long long r = static_cast<long long>(u - q * p);             // [0, 3p)
-    const long long pl = static_cast<long long>(p);
-    if (r >= pl) r -= pl;
-    if (r >= pl) r -= pl;
-    return static_cast<int>(r > half ? r - pl : r);
+    long long r = part(x);
+    if (r > half) r -= p;
+    if (r < -half) r += p;
+    return static_cast<int>(r);
   }
 };
 

@@ -13,11 +13,14 @@ one launch per call: its blocks own column chunks and each walks every
 wave, since a column of R[k] depends only on the same column of the rows
 k references.  R's storage follows the prime (as `ReducedBasis` stores
 it): int16 for p <= 65535, where the kernel sums in int32, and int32
-above, where a second instantiation of the same wave walk forms its
-products in 64 bits (counted apart, as "B1 wide").  The plain version
-runs the wave loop as torch ops (gather, int64 sum, mod).
+above, where a kernel of its own ("B1 wide", counted apart) forms its
+products in 64 bits on a grid the card holds at once (`wide_plan`).  The
+plain version runs the wave loop as torch ops (gather, int64 sum, mod).
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,10 +38,39 @@ def nred_for(p: int) -> int:
     return max(1, min(_KMAX, ((1 << 31) - p) // max((p // 2) ** 2, 1)))
 
 
-def nred_wide(p: int) -> int:
-    """Products per int64 partial sum of the int32-storage kernel:
-    nred * (p//2)^2 <= 2^63 - 2p (16 at d = 3, 2 at p = 2^32 - 5)."""
-    return max(1, min(_KMAX, ((1 << 63) - 2 * p) // max((p // 2) ** 2, 1)))
+def nred_wide(p: int, cmax: Optional[int] = None) -> int:
+    """Products per int64 partial sum of the int32-storage kernel, for
+    coefficients of magnitude at most cmax (default p // 2: any balanced
+    value): nred * cmax * (p//2) <= 2^63 - 2p, at most 16 (16 at d = 3,
+    2 at p = 2^32 - 5 by default; 16 for the +-1 entries of a boundary
+    map), so a partial sum, which starts within p/2 + 2560 of 0
+    (csrc/modp.cuh FpWide.part), stays within 2^63 - p, where FpWide
+    reduces."""
+    c = p // 2 if cmax is None else cmax
+    return max(1, min(_KMAX, ((1 << 63) - 2 * p) // max(c * (p // 2), 1)))
+
+
+def wide_plan(nchunks: int, resident: int) -> Tuple[int, int]:
+    """Kernel B1 wide's grid for nchunks column chunks (of SUBST_COLS) on
+    a card that holds `resident` of its blocks at once: (blocks, per).
+    Every block is resident, and block b owns the chunks b, b + blocks,
+    b + 2 blocks, ...: per or per - 1 of them, so no block walks the waves
+    for more chunks than another but one."""
+    if nchunks < 1 or resident < 1:
+        raise ValueError(f"no B1 wide grid for {nchunks} chunks on "
+                         f"{resident} resident blocks")
+    per = -(-nchunks // resident)
+    return -(-nchunks // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def wide_resident(index: int) -> Tuple[int, int]:
+    """(blocks per SM, SMs) of kernel B1 wide on CUDA device `index`."""
+    with torch.cuda.device(index):
+        bps = _cuda.lib().spasm_subst_blocks_per_sm(1)
+    if bps < 1:        # negative: the CUDA error of the occupancy query
+        raise RuntimeError(f"kernel B1 wide: {bps} blocks per SM")
+    return bps, torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def subst_waves(R: torch.Tensor, rows: np.ndarray, ref_ptr: np.ndarray,
@@ -49,9 +81,8 @@ def subst_waves(R: torch.Tensor, rows: np.ndarray, ref_ptr: np.ndarray,
 
     rows (n,) R row ids in processing order; ref_ptr (n + 1,) offsets
     into refs (R row ids) / coef (balanced ints); bounds (ngroups + 1,)
-    wave boundaries into rows.  A CUDA tensor launches kernel B1 (its
-    int16 or int32 instantiation), a CPU tensor takes the plain
-    version."""
+    wave boundaries into rows.  A CUDA tensor launches kernel B1 (int16
+    R) or B1 wide (int32 R), a CPU tensor takes the plain version."""
     dtype = storage_dtype(p)
     if R.dtype != dtype or R.dim() != 2 or not R.is_contiguous():
         raise ValueError(f"R must be a contiguous 2-D {dtype} tensor for "
@@ -79,10 +110,14 @@ def subst_waves(R: torch.Tensor, rows: np.ndarray, ref_ptr: np.ndarray,
     nrefs = int(ref_ptr[-1])
     if n + nrefs >= 1 << 30:
         raise ValueError("kernel B1 takes fewer than 2^30 rows + references")
+    coef = np.asarray(coef)[:nrefs]
     # the schedule as one int32 array: one copy to the card
     sched = np.concatenate([
         bounds, rows, ref_ptr, np.asarray(refs)[:nrefs],
-        np.asarray(coef)[:nrefs]]).astype(np.int32)
+        coef]).astype(np.int32)
+    if dtype == torch.int32:     # before the copy, which waits for the card
+        cmax = max(int(coef.max(initial=0)), -int(coef.min(initial=0)))
+        nred = nred_wide(p, cmax)
     sched_d = torch.from_numpy(sched).to(R.device)
     L = _cuda.lib()
     if L.spasm_subst_cols() != SUBST_COLS:
@@ -95,9 +130,11 @@ def subst_waves(R: torch.Tensor, rows: np.ndarray, ref_ptr: np.ndarray,
                                       _cuda.stream_ptr(R))
             name = "B1"
         else:
+            bps, sms = wide_resident(torch.cuda.current_device())
+            grid, _ = wide_plan(M // SUBST_COLS, bps * sms)
             err = L.spasm_subst_waves_wide(
                 R.data_ptr(), M, sched_d.data_ptr(), n, nrefs, ngroups,
-                nred_wide(p), p, _cuda.stream_ptr(R))
+                nred, p, grid, _cuda.stream_ptr(R))
             name = "B1 wide"
     _cuda.check(err, f"kernel {name} (spasm_subst_waves)")
     _cuda.launches[name] += 1

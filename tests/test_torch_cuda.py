@@ -38,8 +38,9 @@ from spasm_tpu_torch.dense.rowrref import (CLUSTER_COLS, TILE_W,
                                            _row_sweep_tiles_plain,
                                            rref_rows_device, row_sweep,
                                            row_sweep_tiles, row_sweep_variant)
-from spasm_tpu_torch.dense.subst import (_subst_waves_plain, nred_for,
-                                         nred_wide, subst_waves)
+from spasm_tpu_torch.dense.subst import (SUBST_COLS, _subst_waves_plain,
+                                         nred_for, nred_wide, subst_waves,
+                                         wide_plan, wide_resident)
 from spasm_tpu_torch.device_csr import DeviceCSR
 from spasm_tpu_torch.field import Field
 from spasm_tpu_torch.gen import matching_complex_boundary, synthetic_sparse
@@ -61,8 +62,8 @@ def dev():
 
 def _b1_check(dev, waves, M, p, seed):
     """B1 on the card against its plain version, on R's storage for p
-    (int16, or int32 above 65535: the "B1 wide" instantiation): one
-    launch per call, counted under its own name only."""
+    (int16, or int32 above 65535: the "B1 wide" kernel): one launch per
+    call, counted under its own name only."""
     rows, ptr, refs, coef, bounds = waves
     n = len(rows)
     rng = np.random.default_rng(seed)
@@ -104,24 +105,68 @@ def test_b1_one_row_waves_many_refs(dev, M):
 
 @pytest.mark.parametrize("p", [65521, 65537, 16711421, 16711427,
                                4294967291])
-@pytest.mark.parametrize("M", [2048, 20480])
+@pytest.mark.parametrize("M", [2048, 20480, 16896, 22528])
 def test_b1_wide_matches_plain(dev, p, M):
     """Above the d = 2 tier: int16 storage at 65521 (the existing kernel,
-    nred = 2), the int32 instantiation above 65535 (64-bit products)."""
+    nred = 2), the int32 kernel above 65535 (64-bit products), at widths
+    whose chunks all fit the card at once (16896 = 64 x 264: the old
+    int32 kernel's two blocks per SM; 20480 and 22528 past it)."""
     rng = np.random.default_rng([p, M])
     _b1_check(dev, random_waves(rng, 3000, 40, 12, p), M, p, [p, M, 1])
 
 
-@pytest.mark.parametrize("p", [65537, 4294967291])
+@pytest.mark.parametrize("p", [65537, 4294967291, 16711427])
 def test_b1_wide_one_row_waves_many_refs(dev, p):
     """One row per wave, up to 40 references, more than nred_wide (16 at
-    65537; 2 at 2^32 - 5, with products near 2^62): a row reduces several
-    times."""
+    65537 and 16711427; 2 at 2^32 - 5, with products near 2^62): a row
+    reduces several times."""
     rng = np.random.default_rng([p, 11])
     waves = random_waves(rng, 300, 300, 40, p)
     waves[3][::2] = p // 2                  # the largest coefficients
     assert np.diff(waves[1]).max() > nred_wide(p)
     _b1_check(dev, waves, 20480, p, [p, 12])
+
+
+@pytest.mark.parametrize("p", [65537, 4294967291])
+def test_b1_wide_unit_coefficients(dev, p):
+    """Coefficients +-1 and 0, as a boundary map's (mk12.b4's) are: the
+    wrapper's nred is 16 at any p, and rows of up to 40 references
+    reduce after every 16th product, at values up to p // 2."""
+    rng = np.random.default_rng([p, 13])
+    waves = random_waves(rng, 600, 200, 40, p)
+    waves[3][:] = rng.integers(-1, 2, waves[3].size)
+    assert nred_wide(p, 1) == 16 and np.diff(waves[1]).max() > 16
+    _b1_check(dev, waves, 20480, p, [p, 13])
+
+
+def test_b1_wide_resident_blocks(dev):
+    """Three blocks of the int32 kernel fit an SM (56 registers), as the
+    int16 kernel's do: the 320 chunks of mk12.b4's M = 20480 all run at
+    once on an H100's 132 SMs."""
+    bps, sms = wide_resident(torch.cuda.current_device())
+    assert bps >= 3
+    assert _cuda.lib().spasm_subst_blocks_per_sm(0) >= 3
+    if sms >= 132:
+        assert wide_plan(20480 // SUBST_COLS, bps * sms) == (320, 1)
+
+
+@pytest.mark.parametrize("extra", [1, 5, -1])
+@pytest.mark.parametrize("p", [65537, 4294967291])
+def test_b1_wide_chunks_beyond_resident(dev, p, extra):
+    """More chunks than resident blocks: every block owns two (extra = 1:
+    one chunk past the resident ones, so the last block owns one) or
+    three (extra = 5, from twice the resident count on), walked
+    interleaved in each wave; extra = -1 fills every resident block
+    once."""
+    bps, sms = wide_resident(torch.cuda.current_device())
+    res = bps * sms
+    nchunks = res + extra if extra < 5 else 2 * res + extra
+    grid, per = wide_plan(nchunks, res)
+    assert grid <= res and per == (1 if extra < 0 else 2 if extra == 1
+                                   else 3)
+    rng = np.random.default_rng([p, extra + 1])
+    _b1_check(dev, random_waves(rng, 1200, 30, 12, p), nchunks * SUBST_COLS,
+              p, [p, extra + 1, 2])
 
 
 @pytest.mark.parametrize("p", [65537, 4294967291])
