@@ -29,7 +29,7 @@ Phases, each fatal on failure (no failure is caught):
      boundary maps, oriented as the rank tool does) through `echelonize`
      on the card, cold and warm, held to their published ranks, with the
      histogram of B3's live tiles per sweep over one run (a counter on the
-     card); the finisher's stage profile of a third mk13.b5 run.  B1, B2
+     card).  B1, B2
      and B3 must have launched in this phase, B1 once per reduced-basis
      build and B2 once per sweep;
   5. the dense finishers, with the launch counts zeroed again:
@@ -37,18 +37,16 @@ Phases, each fatal on failure (no failure is caught):
      complement: finish_dense, RREF) and its complete PLUQ, each bit-equal
      to the port's own CPU run, the PLUQ verified; PLUQ16k, the complete
      PLUQ of synthetic_sparse(16000, 16000, 8, 42013) (bench.py config 4),
-     cold and warm, rank 15997, with the finish_dense stage clocks of a
-     third run, then L and U materialized (timed apart) and verified
+     cold and warm, rank 15997, then the warm run's L and U materialized (timed apart) and verified
      (factorization_verify); the same matrix's rank through finish_dense
      (device_dense_width=0).  B4 must have launched in both modes, and
      the variant each main-path panel height takes is printed;
   6. the rounds, with the launch counts zeroed again: mk12.b4 with
      device_dense_width=0 (the reference-shaped round loop: round 0, its
      sparse Schur complement through the reduced basis, round 1, then
-     finish_dense and its low-rank tail), once, with stage clocks, rank
+     finish_dense and its low-rank tail), once, rank
      39535, with the pivots, sampled density and Schur nnz of each round
-     and the stage clocks (pivots, density estimate, reduced basis, sparse
-     Schur, finisher); its complete PLUQ (rank 39535, L and U
+     and the finishers taken; its complete PLUQ (rank 39535, L and U
      materialized, factorization_verify); mk10.b3 with
      device_dense_width=0 through the native GPLU finisher, bit-equal to
      the port's own CPU run.  B1 must launch exactly once per
@@ -58,7 +56,7 @@ Phases, each fatal on failure (no failure is caught):
      pass the wide tiers' width cap of 16384: the rounds, round 0's sparse
      Schur complement through the int32 R and B1 wide, round 1, whose
      14284 free columns fit the cap, then the rank finisher on int32 basis
-     rows and the torch step sweep), once, with stage clocks; (b) the
+     rows and the torch step sweep), once; (b) the
      same with device_dense_width = 81920 (the rank finisher in rows mode
      from round 0) and (c) as (b) at 65537 (d = 3), once each, all
      three rank 39535 (a different rank is rerun on the host to tell the
@@ -92,7 +90,7 @@ Phases, each fatal on failure (no failure is caught):
      after the PHASE_FINISH save (the rank finisher: B1, B3); (b) the
      mk12.b4 rounds (device_dense_width=0, a save after every dense
      block) after the first PHASE_DENSE save (finish_dense: B4 RREF),
-     with stage clocks, its qinv and U compared with phase 6's warm run;
+     its qinv and U compared with phase 6's warm run;
      (c) PLUQ16k's complete PLUQ (a save after every dense block) after
      the first PHASE_DENSE save, resumed with the default 30 s interval
      (B4 LU), verified; (d) mat364 (device_dense_min=0), written on the
@@ -186,7 +184,6 @@ INT32_INSTR_PER_S = 16.7e12
 WIDE_PAIR_M = 16896                 # 64 x 264 columns: two 64-column
                                     # blocks on each of 132 SMs
 WALLS = {}                                  # _timed_rank's walls by label
-PROFILES = {}                               # and its stage clocks
 
 
 def log(msg: str) -> None:
@@ -571,7 +568,6 @@ def _timed_rank(A, want: int, label: str, opts=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     WALLS[label] = wall
-    PROFILES[label] = dict(fact.profile)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if want is not None and fact.r != want:
         sys.exit(f"chip_smoke: {label} rank {fact.r} != {want}")
@@ -647,12 +643,6 @@ def rank_path_phase(mats) -> dict:
         h = hist.cpu().tolist()
         log(f"{tag}: B3 sweeps by live tiles (one run): "
             + json.dumps({t: c for t, c in enumerate(h) if c}))
-    os.environ["SPASM_PROFILE_FINISH"] = "1"
-    fact = _timed_rank(mats["mk13.b5"], MK["mk13.b5"][2],
-                       "mk13.b5 profiled (stage clocks synchronize)")
-    del os.environ["SPASM_PROFILE_FINISH"]
-    log("mk13.b5 finisher stages (s): " + json.dumps(
-        {k: round(v, 4) for k, v in fact.profile.items()}))
     counts = dict(_cuda.launches)
     _launched(counts, ("B1", "B2", "B3"), "the rank path")
     calls = dict(_cuda.calls)
@@ -697,19 +687,13 @@ def dense_finisher_phase() -> dict:
 
     lu0 = _cuda.launches["B4 lu"]
     for run in ("cold", "warm"):
+        fact = None
         fact = _timed_rank(A16, PLUQ16K_RANK, f"PLUQ16k complete PLUQ {run}",
                            pluq)
-        del fact
-    os.environ["SPASM_PROFILE_FINISH"] = "1"
-    fact = _timed_rank(A16, PLUQ16K_RANK, "PLUQ16k profiled (stage clocks "
-                       "synchronize)", pluq)
-    del os.environ["SPASM_PROFILE_FINISH"]
-    log("PLUQ16k finish_dense stages (s): " + json.dumps(
-        {k: round(v, 4) for k, v in fact.profile.items()}))
     lu16 = _cuda.launches["B4 lu"] - lu0
     if lu16 == 0:
         sys.exit("chip_smoke: B4 (LU) never launched on PLUQ16k")
-    log(f"  B4 LU launches over the three PLUQ16k runs: {lu16}")
+    log(f"  B4 LU launches over the two PLUQ16k runs: {lu16}")
     t0 = time.time()
     U, L = fact.U, fact.L
     t_mat = time.time() - t0
@@ -748,7 +732,7 @@ def rounds_phase(mats) -> dict:
     """The reference-shaped round loop, with the launch counts zeroed
     first: mk12.b4 at device_dense_width=0 (round 0, its sparse Schur
     complement through the reduced basis and B1, round 1, finish_dense
-    with B4 in RREF mode and its low-rank tail), once, with stage clocks;
+    with B4 in RREF mode and its low-rank tail), once;
     mk12.b4's complete PLUQ (the L-mode Schur complement through the
     UEliminator, round 1, finish_dense with B4 in LU mode), verified; and
     mk10.b3 at device_dense_width=0 through the native GPLU finisher,
@@ -781,14 +765,10 @@ def rounds_phase(mats) -> dict:
 
     _cuda.reset_launches()
     # one run (the checkpoint phase runs the rounds twice more)
-    os.environ["SPASM_PROFILE_FINISH"] = "1"
     fact, taken = _finishers_taken(lambda: _timed_rank(
-        B, want, "mk12.b4 rounds profiled (stage clocks synchronize)", w0))
-    del os.environ["SPASM_PROFILE_FINISH"]
+        B, want, "mk12.b4 rounds", w0))
     _round_lines(fact)
-    log("mk12.b4 rounds stages (s): " + json.dumps(
-        {k: round(v, 4) for k, v in fact.profile.items()})
-        + f"; finishers taken: {taken}")
+    log(f"mk12.b4 rounds: finishers taken: {taken}")
     t0 = time.time()
     rounds_ref = (fact.qinv, fact.U)       # the checkpoint phase's (b)
     log(f"  its U: {rounds_ref[1].nnz} nnz, materialized in "
@@ -872,13 +852,9 @@ def wide_phase(mats) -> dict:
     _cuda.reset_launches()
     # (a) default options: the rounds (nfree 20107 > 65536 // 4); one
     # call, like (d), to keep the script near half its time limit
-    os.environ["SPASM_PROFILE_FINISH"] = "1"
     fact = _wide_rank(over[P4], want, f"mk12.b4 at p = {P4} (a: default "
-                      "options, the rounds; stage clocks synchronize)", None)
-    del os.environ["SPASM_PROFILE_FINISH"]
+                      "options, the rounds)", None)
     _round_lines(fact)
-    log("  (a) stages (s): " + json.dumps(
-        {k: round(v, 4) for k, v in fact.profile.items()}))
     if len(fact.rounds) < 2 or "schur_nnz" not in fact.rounds[0]:
         sys.exit("chip_smoke: (a) did not take the sparse Schur rounds")
     # (b), (c): the rank finisher in rows mode on int32 basis rows; one
@@ -1175,11 +1151,10 @@ PHASE_NAMES = ("PHASE_ROUND", "PHASE_FINISH", "PHASE_DENSE")
 # compares its wall with
 UNINTERRUPTED = {
     "a": "mk12.b4 warm",
-    "b": "mk12.b4 rounds profiled (stage clocks synchronize)",
+    "b": "mk12.b4 rounds",
     "c": "PLUQ16k complete PLUQ warm",
     "d": "(d) uninterrupted on the card",
-    "e": f"mk12.b4 at p = {P4} (a: default options, the rounds; stage "
-         "clocks synchronize)"}
+    "e": f"mk12.b4 at p = {P4} (a: default options, the rounds)"}
 # the kernels each resume must launch
 RESUME_KERNELS = {"a": ("B1", "B3"), "b": ("B4 rref",), "c": ("B4 lu",),
                   "d": ("B2",), "e": ("B1 wide",)}
@@ -1311,8 +1286,6 @@ def checkpoint_phase(rounds_ref) -> dict:
                 opts = dataclasses.replace(
                     opts, checkpoint_interval_s=EchelonizeOptions
                     .checkpoint_interval_s)
-            if case == "b":
-                os.environ["SPASM_PROFILE_FINISH"] = "1"
             resumed = []
 
             def timed(file, **kw):
@@ -1327,7 +1300,6 @@ def checkpoint_phase(rounds_ref) -> dict:
             fact, taken = _finishers_taken(
                 lambda: _timed_rank(A, want, label, opts))
             ckpt.save_checkpoint = real
-            os.environ.pop("SPASM_PROFILE_FINISH", None)
             if os.path.exists(path):
                 sys.exit(f"chip_smoke: ({case}) the file was not removed")
             missing = [k for k in RESUME_KERNELS[case]
@@ -1347,10 +1319,6 @@ def checkpoint_phase(rounds_ref) -> dict:
                 f"{_saves_line(resumed)}; resume wall {WALLS[label]:.3f} s, "
                 f"uninterrupted {WALLS[UNINTERRUPTED[case]]:.3f} s")
             if case == "b":
-                for what, lab in (("resume", label),
-                                  ("uninterrupted", UNINTERRUPTED["b"])):
-                    log(f"  (b) {what} stages (s): " + json.dumps(
-                        {k: round(v, 4) for k, v in PROFILES[lab].items()}))
                 log(f"  (b) resume's finishers taken: {taken}")
                 same = (np.array_equal(fact.qinv, rounds_ref[0])
                         and _same_csr(fact.U, rounds_ref[1]))
@@ -1549,7 +1517,7 @@ def mesh_phase(mats, mk12, tref, pluq16k, rounds_ref) -> dict:
         fact, walls[f"{tag} g"] = _mesh_run(
             f"({tag}g) mk12.b4 rounds (device_dense_width=0) under mesh "
             f"{tag}", B, EchelonizeOptions(device_dense_width=0), mesh,
-            WALLS["mk12.b4 rounds profiled (stage clocks synchronize)"])
+            WALLS["mk12.b4 rounds"])
         if not (fact.r == want and np.array_equal(fact.qinv, rounds_ref[0])
                 and _same_csr(fact.U, rounds_ref[1])):
             sys.exit(f"chip_smoke: ({tag}g) differs from phase 6's run")

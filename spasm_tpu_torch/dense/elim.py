@@ -332,11 +332,13 @@ def _eliminate(S, p: int, rref: bool, nb: int = _NB, nblk: int = 0):
             St = shards[t]
             if c0 == w:                    # the owner's last block
                 continue
-            ls_t = torch.where(lh_t, lr_t, 0).to(torch.int64)
-            rows_cur = torch.where(lh_t[:, None], St[ls_t, c0:], 0)
-            U = torch.where(lh_t[:, None], matmul_digits(Z_t, rows_cur, p),
-                            0)
-            St[:, c0:] = _submod(St[:, c0:], matmul_digits(G_t, U, p), p)
+            with phase("trailing_update"):
+                ls_t = torch.where(lh_t, lr_t, 0).to(torch.int64)
+                rows_cur = torch.where(lh_t[:, None], St[ls_t, c0:], 0)
+                U = torch.where(lh_t[:, None],
+                                matmul_digits(Z_t, rows_cur, p), 0)
+                St[:, c0:] = _submod(St[:, c0:], matmul_digits(G_t, U, p),
+                                     p)
     if not sharded:
         return S, pivrows[0], piv_at[0], None if rref else Ls[0]
     return (S, mesh_ctx.Sharded(pivrows, 0, S.mesh), piv_at[own],
@@ -393,7 +395,8 @@ def dense_rref_device(Xd: torch.Tensor, p: int, nb: int = _NB):
     onto Xd's device."""
     n, m = Xd.shape
     Sf, pivrow_of_col, _, _ = _eliminate(_pad(Xd, nb), p, True, nb)
-    pivrow = mesh_ctx.gather(pivrow_of_col, site=3).cpu().numpy()[:m]
+    with phase("pivmap_read"):
+        pivrow = mesh_ctx.gather(pivrow_of_col, site=3).cpu().numpy()[:m]
     pivcols = np.nonzero(pivrow >= 0)[0]
     if not pivcols.size:
         return (torch.zeros((0, m), dtype=torch.int32, device=Xd.device),
@@ -419,7 +422,8 @@ def dense_lu_device(Xd: torch.Tensor, p: int, nb: int = _NB):
     n, m = Xd.shape
     dev = Xd.device
     Sf, pivrow_of_col, _, Lslots = _eliminate(_pad(Xd, nb), p, False, nb)
-    pivrow = mesh_ctx.gather(pivrow_of_col, site=3).cpu().numpy()[:m]
+    with phase("pivmap_read"):
+        pivrow = mesh_ctx.gather(pivrow_of_col, site=3).cpu().numpy()[:m]
     pivcols = np.nonzero(pivrow >= 0)[0].astype(np.int64)
     if not pivcols.size:
         return (np.empty(0, np.int64), pivcols,

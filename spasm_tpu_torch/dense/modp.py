@@ -29,6 +29,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from ..profiling import annotate
+
 _DIGIT_BITS = 8
 _DIGIT_BASE = 1 << _DIGIT_BITS          # 256
 
@@ -184,6 +186,7 @@ def _k_step(k: int, m: int, d: int) -> int:
     return max(kc - kc % 8, 8)
 
 
+@annotate("matmul_digits")
 def matmul_digits_i8B(A: torch.Tensor, B8: torch.Tensor, p: int
                       ) -> torch.Tensor:
     """Exact (A @ B8) mod p where B8 is int8 (|values| <= 127, a single
@@ -218,6 +221,7 @@ def matmul_digits_i8B(A: torch.Tensor, B8: torch.Tensor, p: int
     return acc
 
 
+@annotate("matmul_digits")
 def matmul_digits(A: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
     """Exact (A @ B) mod p; A, B balanced integers of any width, out
     balanced int32.  B may be int8 (one digit): then the d-product
@@ -250,6 +254,7 @@ def matmul_digits(A: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
     return acc
 
 
+@annotate("matmul_digits")
 def _matmul_wide(A: torch.Tensor, B: torch.Tensor, p: int,
                  F: DeviceField) -> torch.Tensor:
     """matmul_digits for d == 3 / 4: the d * d digit products summed per

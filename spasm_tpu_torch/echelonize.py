@@ -165,16 +165,17 @@ class _LBuilder:
 
     def build(self, n: int, ncols: int) -> CSR:
         self.flush_pending()
-        if self.rows:
-            r = np.concatenate(self.rows)
-            c = np.concatenate(self.cols)
-            v = np.concatenate(self.vals)
-        else:
-            r = c = v = np.empty(0, np.int64)
-        T = COO.from_entries(n, max(ncols, 1), self.prime, r, c, v)
-        T.n, T.m = n, max(ncols, 1)
-        A = T.tocsr()
-        A.resize(n, ncols)
+        with phase("l_csr"):
+            if self.rows:
+                r = np.concatenate(self.rows)
+                c = np.concatenate(self.cols)
+                v = np.concatenate(self.vals)
+            else:
+                r = c = v = np.empty(0, np.int64)
+            T = COO.from_entries(n, max(ncols, 1), self.prime, r, c, v)
+            T.n, T.m = n, max(ncols, 1)
+            A = T.tocsr()
+            A.resize(n, ncols)
         return A
 
 
@@ -248,22 +249,24 @@ class _UBuilder:
             return
         pending, self._pending = self._pending, []
         for Rd, colmap, pivcols, _ in pending:
-            R = Rd.cpu().numpy()                    # the one D2H copy
-            K = R.shape[0]
-            nz_r, nz_c = np.nonzero(R)
-            # pivot-first: each row's own pivot column sorts first
-            order_cm = np.argsort(colmap, kind="stable")
-            ppos = order_cm[np.searchsorted(colmap, pivcols,
-                                            sorter=order_cm)]
-            first = nz_c == ppos[nz_r]
-            order = np.lexsort((~first, nz_r))
-            nz_r, nz_c = nz_r[order], nz_c[order]
-            counts = np.bincount(nz_r, minlength=K)
-            offs = np.concatenate(([0], np.cumsum(counts)))
-            self._segs.append((offs.astype(np.int64),
-                               colmap[nz_c].astype(np.int32),
-                               R[nz_r, nz_c].astype(np.int32),
-                               pivcols, None))
+            with phase("u_copy"):
+                R = Rd.cpu().numpy()                # the one D2H copy
+            with phase("u_sparsify"):
+                K = R.shape[0]
+                nz_r, nz_c = np.nonzero(R)
+                # pivot-first: each row's own pivot column sorts first
+                order_cm = np.argsort(colmap, kind="stable")
+                ppos = order_cm[np.searchsorted(colmap, pivcols,
+                                                sorter=order_cm)]
+                first = nz_c == ppos[nz_r]
+                order = np.lexsort((~first, nz_r))
+                nz_r, nz_c = nz_r[order], nz_c[order]
+                counts = np.bincount(nz_r, minlength=K)
+                offs = np.concatenate(([0], np.cumsum(counts)))
+                self._segs.append((offs.astype(np.int64),
+                                   colmap[nz_c].astype(np.int32),
+                                   R[nz_r, nz_c].astype(np.int32),
+                                   pivcols, None))
 
     def flat_store(self):
         """All rows as one flat store for the reduced-basis build.
@@ -285,12 +288,14 @@ class _UBuilder:
             vals_all.append(vals[:offs[-1]])
             piv_all.append(pivcols)
             if levels is None:
-                levels = _intra_levels(offs, cols, pivcols)
+                with phase("u_levels"):
+                    levels = _intra_levels(offs, cols, pivcols)
             grp_all.append(gid + levels)
             gid += int(levels.max(initial=0)) + 1
-        return (np.concatenate(offs_all), np.concatenate(cols_all),
-                np.concatenate(vals_all), np.concatenate(piv_all),
-                np.concatenate(grp_all))
+        with phase("u_concat"):
+            return (np.concatenate(offs_all), np.concatenate(cols_all),
+                    np.concatenate(vals_all), np.concatenate(piv_all),
+                    np.concatenate(grp_all))
 
     def snapshot_csr(self) -> CSR:
         offs, cols, vals, _, _ = self.flat_store()
@@ -407,8 +412,6 @@ class LU:
         self._l_thunk = l_thunk
         self.p = p              # (r,) original row of pivot k
         self.complete = complete
-        # stage wall clocks (seconds) when SPASM_PROFILE_FINISH=1
-        self.profile: dict = {}
         # one dict per round this call ran (a resumed call starts at the
         # file's round): structural pivots, sampled Schur density, nnz
         # of the sparse Schur complement (the keys a round reached)
@@ -417,14 +420,16 @@ class LU:
     @property
     def U(self) -> CSR:
         if self._U is None and self._u_thunk is not None:
-            self._U = self._u_thunk()
+            with phase("factors_u"):
+                self._U = self._u_thunk()
             self._u_thunk = None
         return self._U
 
     @property
     def L(self) -> Optional[CSR]:
         if self._L is None and self._l_thunk is not None:
-            self._L = self._l_thunk()
+            with phase("factors_l"):
+                self._L = self._l_thunk()
             self._l_thunk = None
         return self._L
 
@@ -444,7 +449,6 @@ class _Engine:
         # composes its chunks
         self.elim = UEliminator(A.m, A.prime, self.device)
         self._fp: Optional[bytes] = None
-        self.profile: dict = {}
         self.rounds: List[dict] = []
 
     @property
@@ -553,12 +557,9 @@ class _Engine:
         or U.  (reference: update_fact_after_LU,
         spasm_echelonize.c:228-313)  Returns the block's rank."""
         dev = self.device
-        ts = time.time()
         Xq, q, p_out, (Cd, piv_cols) = schur_dense_block_device(
             S, rows, p_in, self.U.qinv, self.elim, want_L=True)
-        ts = self._stage("schur", ts)
         prows, pivcols, Ld, Ud = dense_lu_device(Xq, self.prime)
-        ts = self._stage("lu", ts)
         rank = int(pivcols.size)
         B = len(rows)
         keep = None
@@ -570,11 +571,13 @@ class _Engine:
         def thunk_C(Cd=Cd, npc=piv_cols.size, uc=ucols, po=p_out,
                     keep=keep, B=B):
             # part 1: the coefficients against the prior pivots
-            C = Cd[:B, :npc].cpu().numpy()
-            if keep is not None:
-                C = np.where(keep[:, None], C, 0)
-            r, c = np.nonzero(C)
-            return po[r], uc[c], C[r, c].astype(np.int64)
+            with phase("l_copy"):
+                C = Cd[:B, :npc].cpu().numpy()
+            with phase("l_sparsify"):
+                if keep is not None:
+                    C = np.where(keep[:, None], C, 0)
+                r, c = np.nonzero(C)
+                return po[r], uc[c], C[r, c].astype(np.int64)
 
         self.L.add_pending(thunk_C)
         if rank:
@@ -582,11 +585,13 @@ class _Engine:
 
             def thunk_Ld(Ld=Ld, po=p_out, ubase=ubase, keep=keep, B=B):
                 # part 2: the dense factor's multipliers
-                Lh = Ld[:B].cpu().numpy()
-                if keep is not None:
-                    Lh = np.where(keep[:, None], Lh, 0)
-                r, c = np.nonzero(Lh)
-                return po[r], ubase + c, Lh[r, c].astype(np.int64)
+                with phase("l_copy"):
+                    Lh = Ld[:B].cpu().numpy()
+                with phase("l_sparsify"):
+                    if keep is not None:
+                        Lh = np.where(keep[:, None], Lh, 0)
+                    r, c = np.nonzero(Lh)
+                    return po[r], ubase + c, Lh[r, c].astype(np.int64)
 
             self.L.add_pending(thunk_Ld)
             colmap = np.full(Ud.shape[1], self.m, np.int64)
@@ -600,7 +605,6 @@ class _Engine:
             self.elim.flush()
             self.elim._register_device_chunk(V, colmap, pivcols, winv=Winv)
             self.Lp.extend(p_out[prows].tolist())
-        self._stage("merge", ts)
         return rank
 
     def schur_sparse_reduced(self, S: CSR, rows_p: np.ndarray, n: int,
@@ -613,12 +617,10 @@ class _Engine:
         block b + 1.  Returns (S2, p_out): row k of S2 is original row
         p_out[k].  (reference: spasm_schur, spasm_schur.c:61-193)"""
         from .dense.reduced import ReducedBasis
-        ts = time.time()
         qfree = np.nonzero(self.U.qinv < 0)[0]
         rb = ReducedBasis(self.m, self.prime, qfree, self.U.n, self.device)
         with phase("reduced_basis"):
             rb.build(*self.U.flat_store())
-        ts = self._stage("reduced_basis", ts)
         rb.set_entries(S.indices, S.data, S.nnz)
         counts = np.zeros(n, np.int64)
         cols, vals = [], []
@@ -652,7 +654,6 @@ class _Engine:
         S2 = CSR(n, self.m, self.field, indptr,
                  np.concatenate(cols) if cols else np.empty(0, np.int32),
                  np.concatenate(vals) if vals else np.empty(0, np.int32))
-        self._stage("schur_sparse", ts)
         return S2, p_out
 
     def test_completion(self, S: CSR, p: np.ndarray, n: int) -> bool:
@@ -724,17 +725,6 @@ class _Engine:
         log.info("[lowrank] done in %.1fs, %d new pivots",
                  time.time() - t0, self.U.n - old_un)
 
-    def _stage(self, name: str, since: float) -> float:
-        """SPASM_PROFILE_FINISH=1: add the wall clock since `since`,
-        closed by a device synchronize, to stage `name` of self.profile.
-        Returns the new start."""
-        if os.environ.get("SPASM_PROFILE_FINISH"):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.profile[name] = (self.profile.get(name, 0.0)
-                                  + time.time() - since)
-        return time.time()
-
     @annotate("finish_dense")
     def finish_dense(self, S: CSR, p: np.ndarray, n: int, p_in,
                      checkpoint_cb=None, processed: int = 0):
@@ -743,8 +733,7 @@ class _Engine:
         blocks on the device, then RREF (no L) or LU (L mode) there;
         L-mode blocks under _DEVICE_LU_MIN elements take the host sweep.
         checkpoint_cb(processed) runs after each block; a resume passes
-        the saved `processed` and starts at that row.  Stage clocks: see
-        _stage."""
+        the saved `processed` and starts at that row."""
         opts = self.opts
         dev = self.device
         t0 = time.time()
@@ -759,7 +748,6 @@ class _Engine:
             if Sn <= 0:
                 break
             rows = p[processed:processed + Sn]
-            ts = time.time()
             if opts.L and Sn * max(self.m - self.U.n, 1) >= _DEVICE_LU_MIN:
                 rr = self._dense_lu_block_device(S, rows, p_in)
             elif opts.L:
@@ -772,20 +760,16 @@ class _Engine:
                 self.update_after_lu(rank, prows, pivcols, Ld, Urows, q,
                                      p_out, lmark)
                 rr = rank
-                self._stage("host_lu_block", ts)
             else:
                 # on the device: eliminate -> RREF -> register the pivot
                 # rows as a device chunk, no matrix-sized copy to the host
                 Xd, q, p_out = schur_dense_block_device(
                     S, rows, p_in, self.U.qinv, self.elim)
-                ts = self._stage("schur", ts)
                 Rd, pivcols = dense_rref_device(Xd, self.prime)
-                ts = self._stage("rref", ts)
                 rr = len(pivcols)
                 if rr:
                     self.elim.append_device_chunk(Rd, q, pivcols)
                     self.U.add_dense_rows_device(Rd, q, q[pivcols])
-                self._stage("register", ts)
             processed += Sn
             log.info("[dense] block of %d rows: %d new pivots", Sn, rr)
             if checkpoint_cb is not None:
@@ -845,29 +829,13 @@ class _Engine:
         t0 = time.time()
         old_un = self.U.n
 
-        # SPASM_PROFILE_FINISH=1: per-stage wall clocks, each closed by
-        # a device synchronize (opt-in: the syncs cost overlap)
-        prof = os.environ.get("SPASM_PROFILE_FINISH")
-        tprof = {}
-
-        def tick(name, sync=False):
-            if not prof:
-                return
-            if sync and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.time()
-            tprof[name] = tprof.get(name, 0.0) + now - tick.last
-            tick.last = now
-        tick.last = time.time()
-
         qfree = np.nonzero(self.U.qinv < 0)[0]
         nq = qfree.size
         rb = ReducedBasis(m, prime, qfree, self.U.n, dev)
-        offs_u, cols_u, vals_u, piv_u, grp_u = self.U.flat_store()
-        tick("flat_store")
+        with phase("flat_store"):
+            offs_u, cols_u, vals_u, piv_u, grp_u = self.U.flat_store()
         with phase("reduced_basis"):
             rb.build(offs_u, cols_u, vals_u, piv_u, grp_u)
-        tick("build", True)
         rb.set_entries(S.indices, S.data, S.nnz)
         M = rb.M
         q_ext = np.full(M, m, np.int64)      # slot -> global column
@@ -922,6 +890,7 @@ class _Engine:
                  "block %d, basis %d", "lowrank" if lowrank else "rows",
                  n, nq, B, self.U.n)
 
+        @annotate("form_block")
         def make_block(nrows, rows_from):
             """Host prep + device dispatch of one eliminated block."""
             if lowrank:
@@ -937,15 +906,14 @@ class _Engine:
             return rb.form_block(
                 eidx, coeff, Bp=B_SMALL if nrows <= B_SMALL else B)
 
+        @annotate("completion")
         def completion(cand: np.ndarray) -> bool:
             nonlocal dcsr
             if dcsr is None:
                 from .device_csr import DeviceCSR
                 dcsr = DeviceCSR(S, device=dev)
-            done = self._completion_device(dcsr, p[cand], comp_vals(cand),
+            return self._completion_device(dcsr, p[cand], comp_vals(cand),
                                            rb, basis)
-            tick("completion")
-            return done
 
         prefetched = None           # (N, formed block)
         while rank_ub > 0:
@@ -960,13 +928,11 @@ class _Engine:
                     if N <= 0:
                         break
                     processed += N
-                tick("host_prep")
                 Xq = make_block(N, processed - N)
-                tick("form", True)
-            Xq = basis.apply(Xq)
-            tick("apply", True)
-            Xq, pivd = rref_rows_device(Xq, prime, nb=512)
-            tick("rref_dispatch")
+            with phase("basis_apply"):
+                Xq = basis.apply(Xq)
+            with phase("rref_rows"):
+                Xq, pivd = rref_rows_device(Xq, prime, nb=512)
             # overlap the next block's host prep + forming with the
             # in-flight RREF: forming reads only R, not the basis
             if lowrank and rank_ub - N > 0:
@@ -976,9 +942,8 @@ class _Engine:
                 N2 = min(B, n - processed)
                 prefetched = (N2, make_block(N2, processed))
                 processed += N2
-            tick("prefetch_host")
-            pivcol = pivd.cpu().numpy()
-            tick("rref", True)
+            with phase("pivcol_wait"):
+                pivcol = pivd.cpu().numpy()
             hit = np.nonzero(pivcol >= 0)[0]
             rr = hit.size
             if rr:
@@ -992,12 +957,12 @@ class _Engine:
                     r = t[torch.as_tensor(hit_p, device=t.device)]
                     r[rr:] = 0
                     return r
-                Rd = mesh_ctx.smap(pick, Xq)
-                jpos = np.full(Kp, M - 1, np.int64)
-                jpos[:rr] = pivcol[hit]
-                basis.add(Rd, jpos)
+                with phase("basis_add"):
+                    Rd = mesh_ctx.smap(pick, Xq)
+                    jpos = np.full(Kp, M - 1, np.int64)
+                    jpos[:rr] = pivcol[hit]
+                    basis.add(Rd, jpos)
                 rank_ub -= rr
-            tick("basis_add")
             rounds += 1
             log.info("[finish/device] round %d: %d rows -> %d new pivots",
                      rounds, N, rr)
@@ -1025,20 +990,16 @@ class _Engine:
                              "%d rows lie in the span", n - rem0)
                     break
         # register the basis (final back-reduced rows) into U
-        Rall, jall = basis.export()
-        real = jall < M - 1
-        if np.any(real):
-            jr = jall[real]
-            keep = np.nonzero(real)[0]
-            Rr = mesh_ctx.gather(mesh_ctx.smap(
-                lambda t: t[torch.as_tensor(keep, device=t.device)], Rall),
-                site=5)
-            self.U.add_dense_rows_device(Rr, q_ext, q_ext[jr])
-        tick("register")
-        if prof:
-            log.info("[finish/device] profile: %s",
-                     {k: round(v, 3) for k, v in tprof.items()})
-        self.profile.update(tprof)
+        with phase("basis_register"):
+            Rall, jall = basis.export()
+            real = jall < M - 1
+            if np.any(real):
+                jr = jall[real]
+                keep = np.nonzero(real)[0]
+                Rr = mesh_ctx.gather(mesh_ctx.smap(
+                    lambda t: t[torch.as_tensor(keep, device=t.device)],
+                    Rall), site=5)
+                self.U.add_dense_rows_device(Rr, q_ext, q_ext[jr])
         log.info("[finish/device] done in %.1fs, %d new pivots",
                  time.time() - t0, self.U.n - old_un)
 
@@ -1214,13 +1175,11 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
                      "rank=%d", ckfile, resume_phase, rnd, eng.U.n)
 
     def save(phase_, **kw):
-        """One snapshot of the current loop state, timed as stage
-        `checkpoint`."""
-        ts = time.time()
-        ckpt.save_checkpoint(ckfile, fingerprint=fp, engine=eng, S=S,
-                             p_in=p_in, rnd=rnd, phase=phase_,
-                             density=density, **kw)
-        eng._stage("checkpoint", ts)
+        """One snapshot of the current loop state."""
+        with phase("checkpoint_save"):
+            ckpt.save_checkpoint(ckfile, fingerprint=fp, engine=eng, S=S,
+                                 p_in=p_in, rnd=rnd, phase=phase_,
+                                 density=density, **kw)
 
     in_finisher = resume_phase in (ckpt.PHASE_FINISH, ckpt.PHASE_DENSE)
     # bytes per element of the reduced basis and the finisher's blocks
@@ -1239,9 +1198,7 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
             status = 1
             break
         log.info("[echelonize] round %d", rnd)
-        ts = time.time()
         npiv, p = eng.extract_structural(S, p_in)
-        ts = eng._stage("pivots", ts)
         eng.rounds.append({"pivots": npiv})
         if eng.U.n == m and not opts.L:
             log.info("[echelonize] full column rank from structural "
@@ -1270,7 +1227,6 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
             # fresh sample rows every round (spasm_schur.c:24)
             density = estimate_density(S, p[npiv:], S.n - npiv, U_csr,
                                        eng.U.qinv, 100, seed=1 + rnd)
-        ts = eng._stage("density_estimate", ts)
         eng.rounds[-1]["density"] = density
         if density > opts.sparsity_threshold:
             log.info("[echelonize] Schur complement is dense (%.2f%%)",
@@ -1290,7 +1246,6 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
                 S, p_in = schur_sparse(S, p[npiv:], nrows_s,
                                        LU(eng.U.n, U_csr, eng.U.qinv),
                                        eng.L, p_in, eliminator=eng.elim)
-                eng._stage("schur_sparse", ts)
         eng.rounds[-1]["schur_nnz"] = S.nnz
         log.info("[echelonize] round %d: Schur complement %d x %d, %d nnz",
                  rnd, S.n, m, S.nnz)
@@ -1331,7 +1286,6 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
                 and (density > opts.sparsity_threshold
                      or (opts.enable_tall_and_skinny
                          and aspect > opts.tall_and_skinny_ratio))))
-        ts = time.time()
         if resume_phase == ckpt.PHASE_DENSE:
             # back into the blocked dense finisher where the file left it
             eng.finish_dense(S, p[npiv:], nrem, p_in, checkpoint_cb=cb,
@@ -1348,7 +1302,6 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
         else:
             log.info("[echelonize] no finisher enabled; "
                      "incomplete echelonization returned")
-        eng._stage("finisher", ts)
 
     if ckfile and os.path.exists(ckfile):
         os.unlink(ckfile)
@@ -1359,7 +1312,6 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
         fact._l_thunk = lambda: eng.L.build(n, r)
         fact.p = np.asarray(eng.Lp[:r], dtype=np.int64)
         fact.complete = opts.complete
-    fact.profile = eng.profile
     fact.rounds = eng.rounds
     nnz = eng.U.nnz()
     log.info("[echelonize] done in %.1fs; rank %d%s",

@@ -116,10 +116,11 @@ def test_finisher_matches_jax_device_finisher(name, p):
                             device="cpu"))
 
 
-def test_tall_input_lowrank_and_completion(monkeypatch, caplog):
+def test_tall_input_lowrank_and_completion(caplog):
     """Remaining rows / free columns > 5 and rank below the free width:
     the finisher draws random combinations (lowrank mode), and only the
-    completion test can stop it."""
+    completion test can stop it (its range is on the profiler's
+    timeline)."""
     p = 42013
     rng = np.random.default_rng(5)
     C = np.where(rng.random((1500, 40)) < 0.08,
@@ -127,12 +128,14 @@ def test_tall_input_lowrank_and_completion(monkeypatch, caplog):
     B = np.where(rng.random((40, 200)) < 0.05,
                  rng.integers(1, p, (40, 200)), 0)
     D = (C @ B) % p
-    monkeypatch.setenv("SPASM_PROFILE_FINISH", "1")
-    with caplog.at_level("INFO", logger="spasm_tpu_torch"):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with caplog.at_level("INFO", logger="spasm_tpu_torch"), \
+            torch.profiler.profile(activities=acts) as prof:
         t = echelonize(CSR.from_dense(D, p),
                        EchelonizeOptions(**DEVICE_MIN0), device="cpu")
     assert "lowrank mode" in caplog.text
-    assert "completion" in t.profile and t.r <= 40
+    names = {e.name for e in prof.events()}
+    assert "spasm/completion" in names and t.r <= 40
     _same_factor(jechelonize(JCSR.from_dense(D, p), JOpts(**DEVICE_MIN0)), t)
 
 
