@@ -29,6 +29,7 @@ blocks, and a later call on the same input resumes from the file
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import sys
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from .csr import COO, CSR, _concat_ranges
+from .csr import CSR, _concat_ranges
 from .field import Field
 from .hashing import PRNG
 from .pivots import find_structural_pivots
@@ -53,7 +54,7 @@ from .triangular import sparse_triangular_solve
 from .dense.block import UEliminator, _unit_upper_inverse_log
 from .dense.elim import (_size_bucket, dense_lu, dense_lu_device, dense_rank,
                          dense_rref, dense_rref_device)
-from .dense.modp import matmul_digits
+from .dense.modp import dnorm64, matmul_digits
 from .parallel import context as mesh_ctx
 
 log = logging.getLogger("spasm_tpu_torch")
@@ -121,10 +122,14 @@ _DENSE_ELEM_BUDGET = 64 << 20
 
 
 class _LBuilder:
-    """Triplet accumulator for L (the reference's Ltmp).  Dense-factor
-    parts may stay on the device behind thunks (add_pending) that return
-    host (rows, cols, vals) triplets only when L is built, so the
-    factorization's wall excludes the factors' device-to-host copy."""
+    """Triplet accumulator for L (the reference's Ltmp).  Host batches
+    hold numpy triplets; dense-factor parts may stay on the device
+    behind thunks (add_pending) that return their nonzero triplets as
+    tensors on the block's device only when L is built, so the
+    factorization's wall excludes the factors' device-to-host copy.
+    build() assembles the CSR where the pending blocks are (on the CPU
+    when there are none) and copies it to the host once; `record` says
+    where the last build ran and what it took from each side."""
 
     def __init__(self, prime: int):
         self.prime = prime
@@ -132,14 +137,17 @@ class _LBuilder:
         self.cols: List[np.ndarray] = []
         self.vals: List[np.ndarray] = []
         self._pending: List = []
+        self.record: Optional[dict] = None
 
     def add_pending(self, thunk):
         self._pending.append(thunk)
 
     def flush_pending(self):
+        """Run the pending thunks and keep their triplets as host
+        batches (what a checkpoint saves)."""
         pending, self._pending = self._pending, []
         for th in pending:
-            r, c, v = th()
+            r, c, v = (t.cpu().numpy() for t in th())
             if len(r):
                 self.add_batch(r, c, v)
 
@@ -164,19 +172,75 @@ class _LBuilder:
             self.vals[k] = self.vals[k][sel]
 
     def build(self, n: int, ncols: int) -> CSR:
-        self.flush_pending()
+        """The (n, ncols) CSR of every triplet added: values summed per
+        (row, col) mod p, balanced, zeros dropped, rows sorted by column
+        (what COO.from_entries(...).tocsr() gives).  Each pending block
+        is released once its thunk has run."""
+        p, M = self.prime, max(ncols, 1)
+        parts = []
+        while self._pending:
+            parts.append(self._pending.pop(0)())
+        dev = parts[0][0].device if parts else torch.device("cpu")
+        n_dev = sum(r.numel() for r, _, _ in parts)
         with phase("l_csr"):
             if self.rows:
-                r = np.concatenate(self.rows)
-                c = np.concatenate(self.cols)
-                v = np.concatenate(self.vals)
-            else:
-                r = c = v = np.empty(0, np.int64)
-            T = COO.from_entries(n, max(ncols, 1), self.prime, r, c, v)
-            T.n, T.m = n, max(ncols, 1)
-            A = T.tocsr()
-            A.resize(n, ncols)
-        return A
+                parts.append(tuple(
+                    torch.from_numpy(np.concatenate(x)).to(dev)
+                    for x in (self.rows, self.cols, self.vals)))
+            n_host = sum(x.size for x in self.rows)
+            empty = torch.empty(0, dtype=torch.int64, device=dev)
+            keys, vals = [empty], [empty]
+            while parts:
+                r, c, v = parts.pop()
+                v = dnorm64(v, p)
+                nz = v != 0
+                # row * M + col fits int64: CSR indices are int32
+                keys.append(r[nz] * M + c[nz])
+                vals.append(v[nz])
+            key, order = torch.sort(torch.cat(keys))
+            val = torch.cat(vals)[order]
+            del keys, vals, order
+            if key.numel():
+                first = torch.ones_like(key, dtype=torch.bool)
+                torch.ne(key[1:], key[:-1], out=first[1:])
+                if not bool(first.all()):
+                    # segment-sum the duplicates of one (row, col)
+                    seg = torch.cumsum(first, 0) - 1
+                    sums = torch.zeros(int(seg[-1]) + 1, dtype=torch.int64,
+                                       device=dev).index_add_(0, seg, val)
+                    val = dnorm64(sums, p)
+                    nz = val != 0
+                    key, val = key[first][nz], val[nz]
+            row = torch.div(key, M, rounding_mode="floor")
+            col = (key - row * M).to(torch.int32)
+            val = val.to(torch.int32)
+            indptr = torch.searchsorted(
+                row, torch.arange(n + 1, dtype=torch.int64, device=dev))
+            nnz = int(indptr[-1])       # waits for the device's work
+        with phase("l_copy"):
+            L = CSR(n, ncols, Field(p), indptr.cpu().numpy(),
+                    col.cpu().numpy(), val.cpu().numpy())
+        self.record = {"device": str(dev), "device_entries": n_dev,
+                       "host_entries": n_host}
+        log.info("[echelonize] L's CSR built on %s: %d entries from device "
+                 "blocks, %d from host batches, %d nonzeros",
+                 dev, n_dev, n_host, nnz)
+        return L
+
+
+def _nonzero_triplets(X: torch.Tensor, rows, row_ids, col_ids):
+    """(row_ids[i], col_ids[j], X[i, j]) for the nonzeros of X's rows
+    `rows` (sorted; every row when None), row-major as np.nonzero gives
+    them, as tensors on X's device."""
+    with phase("l_sparsify"):
+        dev = X.device
+        if rows is not None:
+            X = X[torch.as_tensor(rows, device=dev)]
+            row_ids = np.asarray(row_ids)[rows]
+        i, j = torch.nonzero(X).unbind(1)
+        return (torch.as_tensor(np.asarray(row_ids, np.int64), device=dev)[i],
+                torch.as_tensor(np.asarray(col_ids, np.int64), device=dev)[j],
+                X[i, j])
 
 
 class _UBuilder:
@@ -562,38 +626,19 @@ class _Engine:
         prows, pivcols, Ld, Ud = dense_lu_device(Xq, self.prime)
         rank = int(pivcols.size)
         B = len(rows)
-        keep = None
-        if not self.opts.complete:
-            keep = np.zeros(B, bool)
-            keep[prows] = True
         ucols = self.U.qinv[piv_cols].copy()
+        # L's rows of this block: all of them, or the pivotal ones
+        lrows = None if self.opts.complete else np.sort(prows)
 
-        def thunk_C(Cd=Cd, npc=piv_cols.size, uc=ucols, po=p_out,
-                    keep=keep, B=B):
-            # part 1: the coefficients against the prior pivots
-            with phase("l_copy"):
-                C = Cd[:B, :npc].cpu().numpy()
-            with phase("l_sparsify"):
-                if keep is not None:
-                    C = np.where(keep[:, None], C, 0)
-                r, c = np.nonzero(C)
-                return po[r], uc[c], C[r, c].astype(np.int64)
-
-        self.L.add_pending(thunk_C)
+        # part 1: the coefficients against the prior pivots
+        self.L.add_pending(functools.partial(
+            _nonzero_triplets, Cd[:B, :piv_cols.size], lrows, p_out, ucols))
         if rank:
+            # part 2: the dense factor's multipliers
             ubase = self.U.n
-
-            def thunk_Ld(Ld=Ld, po=p_out, ubase=ubase, keep=keep, B=B):
-                # part 2: the dense factor's multipliers
-                with phase("l_copy"):
-                    Lh = Ld[:B].cpu().numpy()
-                with phase("l_sparsify"):
-                    if keep is not None:
-                        Lh = np.where(keep[:, None], Lh, 0)
-                    r, c = np.nonzero(Lh)
-                    return po[r], ubase + c, Lh[r, c].astype(np.int64)
-
-            self.L.add_pending(thunk_Ld)
+            self.L.add_pending(functools.partial(
+                _nonzero_triplets, Ld[:B], lrows, p_out,
+                np.arange(ubase, ubase + rank, dtype=np.int64)))
             colmap = np.full(Ud.shape[1], self.m, np.int64)
             colmap[:q.size] = q
             self.U.add_dense_rows_device(Ud, colmap, q[pivcols])

@@ -1,6 +1,8 @@
 """The engine's `spasm/...` profiler ranges (profiling.phase / annotate):
 where the factors are read, inside the rank finisher, around the digit
 matmul; and none at all when no profiler is active."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -60,14 +62,21 @@ def _inside(child, parents) -> bool:
     return any(t == pt and ps <= s and e <= pe for pt, ps, pe in parents)
 
 
-def test_factors_spans_nest_in_the_read():
+def test_factors_spans_nest_in_the_read(caplog):
     A = _dense_square()
     fact = echelonize(A, EchelonizeOptions(complete=True), device="cpu")
 
     def read():
         assert fact.U.n == fact.r and fact.L.n == A.n
 
-    spans = _spans(read)
+    with caplog.at_level("INFO", logger="spasm_tpu_torch"):
+        spans = _spans(read)
+    # L's engagement record: the device LU's blocks, and one host entry
+    # per structural pivot
+    m = re.search(r"L's CSR built on cpu: (\d+) entries from device "
+                  r"blocks, (\d+) from host batches", caplog.text)
+    assert m and int(m[1]) > 0
+    assert int(m[2]) == sum(r["pivots"] for r in fact.rounds) > 0
     for parent, children in FACTORS.items():
         assert len(spans.get(parent, [])) == 1, parent
         for child in children:
