@@ -56,6 +56,7 @@ import torch
 
 from .. import _cuda
 from ..parallel import context as mesh_ctx
+from ..profiling import annotate
 from .elim import _mulsub, _scale_rows, _submod
 from .modp import (check_small, device_field, dnorm64, matmul_digits,
                    modinv, storage_dtype)
@@ -185,13 +186,15 @@ def _row_sweep_plain(P: torch.Tensor, p: int) -> torch.Tensor:
     return pivcol
 
 
+@annotate("step_sweep")
 def step_sweep(P: torch.Tensor, p: int) -> torch.Tensor:
     """The leftmost-rule Jordan sweep of P (nb, M) int32 in place, in
     torch ops on P's device (the JAX package's XLA step loop,
     rowrref.py:430-446): per row k, its leftmost nonzero j, then P <-
     v*P - g (x) P[k] with v = P[k, j], g = P[:, j], g[k] = 0.  No host
     sync: a zero row takes v = 1, g = 0, an identity update.  The d >= 3
-    route of `rref_rows_device`; returns pivcol (nb,) int32."""
+    route of `rref_rows_device`, one `spasm/step_sweep` range a call;
+    returns pivcol (nb,) int32."""
     nb, M = P.shape
     dev = P.device
     iota = torch.arange(nb, device=dev)

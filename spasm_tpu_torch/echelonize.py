@@ -1239,66 +1239,69 @@ def echelonize(A: CSR, opts: Optional[EchelonizeOptions] = None,
     if mesh_dev is not None:
         mesh_ctx.count(7)
     while not in_finisher and rnd < opts.max_round:
-        if S.nnz == 0:
-            status = 1
-            break
-        log.info("[echelonize] round %d", rnd)
-        npiv, p = eng.extract_structural(S, p_in)
-        eng.rounds.append({"pivots": npiv})
-        if eng.U.n == m and not opts.L:
-            log.info("[echelonize] full column rank from structural "
-                     "pivots")
-            status = 1
-            break
-        # once the free columns fit a dense device block, the remaining
-        # rank belongs to the device finisher: no further sparse rounds
-        nfree = m - eng.U.n
-        basis_bytes = (eng.U.n + min(S.n - npiv, nfree)) * nfree \
-            * itemsize // kcols
-        if (not opts.L and opts.enable_dense
-                and 0 < nfree <= wcap
-                and (S.n - npiv) * nfree >= opts.device_dense_min
-                and basis_bytes <= opts.device_dense_mem):
-            log.info("[echelonize] %d free columns fit the device "
-                     "finisher; skipping sparse rounds", nfree)
-            status = 3
-            break
-        if npiv < opts.min_pivot_proportion * min(S.n, m - eng.U.n):
-            log.info("[echelonize] not enough pivots found; stopping")
-            status = 2
-            break
-        U_csr = eng.U.snapshot_csr()
-        with phase("density_estimate"):
-            # fresh sample rows every round (spasm_schur.c:24)
-            density = estimate_density(S, p[npiv:], S.n - npiv, U_csr,
-                                       eng.U.qinv, 100, seed=1 + rnd)
-        eng.rounds[-1]["density"] = density
-        if density > opts.sparsity_threshold:
-            log.info("[echelonize] Schur complement is dense (%.2f%%)",
-                     100 * density)
-            status = 2
-            break
-        nrows_s = S.n - npiv
-        use_rb_schur = (eng.L is None and nfree > 0
-                        and eng.U.n * nfree * itemsize
-                        <= opts.device_dense_mem // 2
-                        and nrows_s * m >= (1 << 21))
-        with phase("schur_sparse"):
-            if use_rb_schur:
-                S, p_in = eng.schur_sparse_reduced(S, p[npiv:], nrows_s,
-                                                   p_in)
-            else:
-                S, p_in = schur_sparse(S, p[npiv:], nrows_s,
-                                       LU(eng.U.n, U_csr, eng.U.qinv),
-                                       eng.L, p_in, eliminator=eng.elim)
-        eng.rounds[-1]["schur_nnz"] = S.nnz
-        log.info("[echelonize] round %d: Schur complement %d x %d, %d nnz",
-                 rnd, S.n, m, S.nnz)
-        npiv = 0
-        p = np.arange(S.n, dtype=np.int64)
-        rnd += 1
-        if ckfile:
-            save(ckpt.PHASE_ROUND)
+        # one range per round: its pivots, density estimate and Schur
+        # complement (and the round's checkpoint save)
+        with phase("round"):
+            if S.nnz == 0:
+                status = 1
+                break
+            log.info("[echelonize] round %d", rnd)
+            npiv, p = eng.extract_structural(S, p_in)
+            eng.rounds.append({"pivots": npiv})
+            if eng.U.n == m and not opts.L:
+                log.info("[echelonize] full column rank from structural "
+                         "pivots")
+                status = 1
+                break
+            # once the free columns fit a dense device block, the remaining
+            # rank belongs to the device finisher: no further sparse rounds
+            nfree = m - eng.U.n
+            basis_bytes = (eng.U.n + min(S.n - npiv, nfree)) * nfree \
+                * itemsize // kcols
+            if (not opts.L and opts.enable_dense
+                    and 0 < nfree <= wcap
+                    and (S.n - npiv) * nfree >= opts.device_dense_min
+                    and basis_bytes <= opts.device_dense_mem):
+                log.info("[echelonize] %d free columns fit the device "
+                         "finisher; skipping sparse rounds", nfree)
+                status = 3
+                break
+            if npiv < opts.min_pivot_proportion * min(S.n, m - eng.U.n):
+                log.info("[echelonize] not enough pivots found; stopping")
+                status = 2
+                break
+            U_csr = eng.U.snapshot_csr()
+            with phase("density_estimate"):
+                # fresh sample rows every round (spasm_schur.c:24)
+                density = estimate_density(S, p[npiv:], S.n - npiv, U_csr,
+                                           eng.U.qinv, 100, seed=1 + rnd)
+            eng.rounds[-1]["density"] = density
+            if density > opts.sparsity_threshold:
+                log.info("[echelonize] Schur complement is dense (%.2f%%)",
+                         100 * density)
+                status = 2
+                break
+            nrows_s = S.n - npiv
+            use_rb_schur = (eng.L is None and nfree > 0
+                            and eng.U.n * nfree * itemsize
+                            <= opts.device_dense_mem // 2
+                            and nrows_s * m >= (1 << 21))
+            with phase("schur_sparse"):
+                if use_rb_schur:
+                    S, p_in = eng.schur_sparse_reduced(S, p[npiv:], nrows_s,
+                                                       p_in)
+                else:
+                    S, p_in = schur_sparse(S, p[npiv:], nrows_s,
+                                           LU(eng.U.n, U_csr, eng.U.qinv),
+                                           eng.L, p_in, eliminator=eng.elim)
+            eng.rounds[-1]["schur_nnz"] = S.nnz
+            log.info("[echelonize] round %d: Schur complement %d x %d, %d nnz",
+                     rnd, S.n, m, S.nnz)
+            npiv = 0
+            p = np.arange(S.n, dtype=np.int64)
+            rnd += 1
+            if ckfile:
+                save(ckpt.PHASE_ROUND)
 
     if status != 1:
         nrem = S.n - npiv

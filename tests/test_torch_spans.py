@@ -1,13 +1,17 @@
 """The engine's `spasm/...` profiler ranges (profiling.phase / annotate):
 where the factors are read, inside the rank finisher, around the digit
-matmul; and none at all when no profiler is active."""
+matmul, around each round and each wide row sweep, with the benchmark's
+readers of the last two; and none at all when no profiler is active."""
 import re
 
 import numpy as np
 import pytest
 import torch
 
-from spasm_tpu_torch import CSR, EchelonizeOptions, echelonize, profiling
+from benchmark import harness, tracing
+from spasm_tpu_torch import (CSR, EchelonizeOptions, Field, echelonize,
+                             profiling)
+from spasm_tpu_torch.gen import matching_complex_boundary
 
 P = 42013
 FACTORS = {"spasm/factors_u": ("spasm/u_copy", "spasm/u_sparsify",
@@ -42,19 +46,24 @@ def _tall_lowrank():
     return CSR.from_dense((C @ B) % P, P)
 
 
-def _spans(fn):
-    """{name: [(thread, start_ns, end_ns)]} of the spasm/ ranges that
-    fn() entered under a CPU profiler."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+def _span_map(events):
+    """{name: [(thread, start_ns, end_ns)]} of the spasm/ ranges among
+    raw profiler events."""
     out = {}
-    for e in prof.profiler.kineto_results.events():
+    for e in events:
         if e.name().startswith("spasm/"):
             s = e.start_ns()
             out.setdefault(e.name(), []).append(
                 (e.start_thread_id(), s, s + e.duration_ns()))
     return out
+
+
+def _spans(fn):
+    """The spasm/ ranges that fn() entered under a CPU profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    return _span_map(prof.profiler.kineto_results.events())
 
 
 def _inside(child, parents) -> bool:
@@ -130,6 +139,103 @@ def test_rank_finisher_stage_spans():
                for c in spans["spasm/u_concat"])
     assert any(_inside(c, spans["spasm/factors_u"])
                for c in spans["spasm/u_copy"])
+
+
+# the cells mk12b4.rank and mk12b4.rank.p4294967291: their readers and
+# the ranges they read
+NEW_READERS = ("rounds.span_s", "step_sweep.device_s", "step_sweep.launches",
+               "rank_finisher.rows_blocks")
+PW = 4294967291
+
+
+def _read(name, rec):
+    return harness.load_module(harness.BENCH / "metrics"
+                               / f"{name}.py").read(rec)
+
+
+def _record(fn):
+    """The benchmark's traced record (benchmark/tracing.py) of one call
+    of fn() under a CPU profiler, and its spasm/ spans as _spans gives
+    them."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("bench/call"):
+            fn()
+    events = prof.profiler.kineto_results.events()
+    rec = tracing.record_of(events)
+    rec["ncalls"] = 1
+    return rec, _span_map(events)
+
+
+@pytest.fixture(scope="module")
+def wide_route():
+    """mk10.b3 at 2^32 - 5 on mk12.b4's route there: round 0 forms its
+    sparse Schur complement through the reduced basis (the width cap,
+    600 free columns at d = 4, below round 0's 637), round 1 hands the
+    rank finisher its 589 free columns in rows mode, whose sub-panels
+    take step_sweep."""
+    B = matching_complex_boundary(10, 3)
+    A = CSR(B.n, B.m, Field(PW), B.indptr, B.indices, B.data)
+    opts = EchelonizeOptions(device_dense_min=0, device_dense_width=2400)
+    out = {}
+    out["rec"], out["spans"] = _record(
+        lambda: out.setdefault("fact", echelonize(A, opts, device="cpu")))
+    return out
+
+
+def test_round_spans_hold_pivots_and_schur(wide_route):
+    spans, fact = wide_route["spans"], wide_route["fact"]
+    assert fact.r == 2564 and "schur_nnz" in fact.rounds[0]
+    rounds = spans["spasm/round"]
+    assert len(rounds) == len(fact.rounds) == 2
+    for name in ("spasm/pivots", "spasm/density_estimate",
+                 "spasm/schur_sparse"):
+        assert spans[name] and all(_inside(c, rounds)
+                                   for c in spans[name]), name
+    # round 0 holds the Schur complement, round 1 only its pivots
+    assert all(_inside(c, rounds[:1]) for c in spans["spasm/schur_sparse"])
+    assert any(_inside(c, rounds[1:]) for c in spans["spasm/pivots"])
+    # the finisher runs after the rounds, outside them
+    assert not any(_inside(c, rounds) for c in spans["spasm/finish_device"])
+
+
+def test_step_sweep_spans_sit_inside_rref_rows(wide_route):
+    spans = wide_route["spans"]
+    sweeps = spans["spasm/step_sweep"]
+    assert sweeps and all(_inside(c, spans["spasm/rref_rows"])
+                          for c in sweeps)
+    assert all(_inside(c, spans["spasm/finish_device"])
+               for c in spans["spasm/rref_rows"])
+    # one sweep a 64-row sub-panel of every block swept
+    assert len(sweeps) % 16 == 0 and len(sweeps) >= 16
+
+
+def test_new_readers_on_the_wide_route(wide_route):
+    rec, spans = wide_route["rec"], wide_route["spans"]
+    got = {name: _read(name, rec) for name in NEW_READERS}
+    assert all(isinstance(v, float) for v in got.values()), got
+    assert got["rank_finisher.rows_blocks"] == len(spans["spasm/rref_rows"])
+    assert 0 < got["rounds.span_s"] <= (rec["calls"][0][1]
+                                        - rec["calls"][0][0]) / 1e6
+    # no device here: nothing launched, no device time
+    assert got["step_sweep.launches"] == got["step_sweep.device_s"] == 0.0
+
+
+def test_new_readers_none_where_the_span_is_absent():
+    """At 42013 no step_sweep runs; an empty record holds no range."""
+    rec, spans = _record(lambda: echelonize(
+        _tall_lowrank(), EchelonizeOptions(device_dense_min=0),
+        device="cpu"))
+    assert "spasm/step_sweep" not in spans
+    assert _read("step_sweep.device_s", rec) is None
+    assert _read("step_sweep.launches", rec) is None
+    assert _read("rounds.span_s", rec) > 0
+    assert _read("rank_finisher.rows_blocks", rec) == len(
+        spans["spasm/rref_rows"])
+    empty = tracing.record_of([])
+    empty["ncalls"] = 0
+    for name in NEW_READERS:
+        assert _read(name, empty) is None, name
 
 
 def _raise(*a, **kw):
