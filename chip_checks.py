@@ -1,10 +1,10 @@
 """Inputs and timers shared by the card tests (tests/test_torch_cuda.py)
 and chip_smoke.py, kept beside them and out of the spasm_tpu_torch
 package: random substitution waves for kernel B1, sub-panels for the row
-sweeps B2/B3, column panels for the panel kernel
-B4, bench.py config 5's two instances (`scc_banded`, `upper_triangular`,
-copied here because bench.py imports the JAX package), and CUDA-event
-timing.
+sweeps B2/B3, column panels for the panel kernel B4, blocks for the
+gather-combine B12, bench.py config 5's two instances (`scc_banded`,
+`upper_triangular`, copied here because bench.py imports the JAX
+package), and CUDA-event timing.
 
 Inputs are made with numpy from an explicit Generator, so a kernel and its
 plain version see the same numbers on any device.
@@ -37,6 +37,35 @@ def random_waves(rng: np.random.Generator, n: int, nwaves: int,
     refs = np.floor(rng.random(lim.size) * lim).astype(np.int64)
     coef = balanced(rng, refs.size, p).astype(np.int32)
     return np.arange(n, dtype=np.int64), ref_ptr, refs, coef, bounds
+
+
+def combine_inputs(rng: np.random.Generator, S: int, K: int, w: int,
+                   p: int, live: float = 0.06, npad: int = 256):
+    """Inputs of kernel B12 (`dense.reduced.gather_combine`) and its
+    plain version: X (S, w) and V (S, K) balanced int32, R (npad, w)
+    balanced int64 whose last row is zero (the dead row), refs (S, K)
+    int64 R row ids.  About `live` of the slots reference a row of R
+    with V != 0; of the others half point at the dead row and half carry
+    V = 0.  R's rows 0 and 1 are +-(p - 1)/2 throughout; row 1 of the
+    block has only dead slots, rows 2 and 3 (where S > 3) take V =
+    (p - 1)/2 on every slot against R's row 0, and alternating
+    +-(p - 1)/2 against row 1: the largest sums."""
+    half = (p - 1) // 2
+    R = balanced(rng, (npad, w), p)
+    R[0], R[1], R[-1] = half, -half, 0
+    X = balanced(rng, (S, w), p).astype(np.int32)
+    refs = rng.integers(0, npad - 1, (S, K))
+    V = balanced(rng, (S, K), p)
+    dead = rng.random((S, K)) >= live
+    at_dead = dead & (rng.random((S, K)) < 0.5)
+    refs[at_dead] = npad - 1
+    V[dead & ~at_dead] = 0
+    if S > 1:
+        refs[1] = npad - 1
+    if S > 3:
+        V[2], refs[2] = half, 0
+        V[3], refs[3] = np.where(np.arange(K) % 2, half, -half), 1
+    return X, V.astype(np.int32), R, refs
 
 
 def deficient_panel(rng: np.random.Generator, nb: int, M: int, r: int,

@@ -21,8 +21,14 @@ Phases, each fatal on failure (no failure is caught):
      times, launches per call and each kernel's bound (bytes over 3.35
      TB/s or operations over 67 T/s, whichever is larger); B4's phase
      split (its stamped build: preamble, discovery, minor steps, inverse,
-     Vinv) in both variants, each also bit-equal; matmul_digits on the
-     card against the CPU;
+     Vinv) in both variants, each also bit-equal; B12 (the
+     gather-combine of the rank finisher's blocks at d >= 3) against its
+     plain version (the torch slot loop, on the card) at mk12.b4's
+     shapes at 2^32 - 5, the finisher's largest chunk (4096 rows x 1248
+     slots, 4.7 % live, w = 14336, int32 R) and a round-0 Schur chunk
+     (8 slots, w = 20480), and the finisher's shape at 65521 on int16 R,
+     bit-equal, with its bound by bytes and by int32-pipe instructions;
+     matmul_digits on the card against the CPU;
   4. the rank path, with the launch counts zeroed first: one tests/Matrix
      fixture (M = 2048, so B2 sweeps), bit-equal to the port's own CPU run;
      the `rank` CLI on mk12.b4; mk12.b4 and mk13.b5 (matching-complex
@@ -63,8 +69,8 @@ Phases, each fatal on failure (no failure is caught):
      matrix from the port); (d) the complete PLUQ of
      synthetic_sparse(16000, 16000, 8, 2^32 - 5), once, its rank equal
      to the rank path's, L and U materialized and verified.  B1 wide
-     must launch exactly once per reduced-basis build, and B1 (int16),
-     B2, B3 and B4 never;
+     must launch exactly once per reduced-basis build, B12 must launch,
+     and B1 (int16), B2, B3 and B4 never;
   8. the tools, with the launch counts zeroed again: (a) phase 5's
      PLUQ16k factors: a rank certificate created, verified (r = 15997),
      saved and loaded back, refused on A with one entry changed, and
@@ -397,6 +403,65 @@ def b1_line(label, R0, waves, reps: int, p: int = P) -> dict:
     return dict(rec, ms=ms, plain_ms=plain_ms)
 
 
+def b12_line(rng, S: int, K: int, w: int, p: int, live: float,
+             npad: int, label: str) -> dict:
+    """B12 (one launch a call) against its plain version on the card (the
+    torch slot loop, the balanced difference, column w - 1 zeroed) on
+    chip_checks.combine_inputs: held bit-equal, timed (each timed call
+    combines into the last result in place: the same slots, the same
+    work), with the bound the larger of its bytes over HBM (X read and
+    written, refs and V read, each distinct referenced row of R read
+    once) and its int32-pipe instructions over INT32_INSTR_PER_S, counted
+    as `_wide_ops` counts B1 wide's: 4 a live product, 5 a fold after
+    every nred_wide(p) of a row's products, 11 a row's final reduction,
+    per column."""
+    from chip_checks import combine_inputs, cuda_ms
+    from spasm_tpu_torch import _cuda
+    from spasm_tpu_torch.dense.elim import _submod
+    from spasm_tpu_torch.dense.modp import storage_dtype
+    from spasm_tpu_torch.dense.reduced import _ref_combine, gather_combine
+    from spasm_tpu_torch.dense.subst import nred_wide
+    dev = torch.device("cuda")
+    X, V, R, refs = combine_inputs(rng, S, K, w, p, live, npad)
+    Xd, Vd, refsd = (torch.from_numpy(a).to(dev) for a in (X, V, refs))
+    Rd = torch.from_numpy(R).to(dev, storage_dtype(p))
+    dead = npad - 1
+
+    def plain():
+        out = _submod(Xd, _ref_combine(Vd, Rd, refsd, p), p)
+        out[:, w - 1] = 0
+        return out
+
+    got = Xd.clone()
+    before = _cuda.launches["B12"]
+    gather_combine(got, Vd, Rd, refsd, p, dead, True)
+    per_call = _cuda.launches["B12"] - before
+    ok = (refs != dead) & (V != 0)
+    k = ok.sum(axis=1)
+    nref = np.unique(refs[ok]).size
+    nbytes = (2 * X.nbytes + refs.nbytes + V.nbytes
+              + nref * w * Rd.element_size())
+    ops = w * int(4 * k.sum() + 5 * (k // nred_wide(p)).sum() + 11 * S)
+    rec = _record("B12 gather_combine", "spasm_tpu_torch/csrc/combine.cu",
+                  "none (XLA gather, spasm_tpu/dense/reduced.py:54)", [got],
+                  [plain()], nbytes, ops, INT32_INSTR_PER_S)
+    ms = cuda_ms(lambda: gather_combine(got, Vd, Rd, refsd, p, dead, True),
+                 5)
+    plain_ms = cuda_ms(plain, 1)
+    log(f"B12 {label} at p = {p}: ({S}, {w}), K = {K}, {Rd.dtype} R of "
+        f"{npad} rows; {int(k.sum())} live slots ({k.sum() / ok.size:.2%}, "
+        f"at most {int(k.max())} a row), {nref} distinct rows of R; "
+        f"{per_call} launch per call; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bounds {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"by {nbytes} bytes, {ops / INT32_INSTR_PER_S * 1e3:.4f} ms by "
+        f"{ops} int32 instructions ({rec['bound_by']}), bit-equal")
+    if per_call != 1:
+        sys.exit(f"chip_smoke: B12 made {per_call} launches in one call")
+    del Xd, Vd, Rd, refsd, got
+    torch.cuda.empty_cache()
+    return dict(rec, ms=ms, plain_ms=plain_ms)
+
+
 def b1_real_schedule(A, tag: str, opts, p: int = P, shards: int = 1) -> dict:
     """B1 on the schedule that round 0 of echelonize(A, opts) builds: its
     structural pivots, the reduced basis's waves (`subst_schedule`), R
@@ -466,6 +531,15 @@ def kernel_phase(mats) -> dict:
                      EchelonizeOptions(device_dense_width=0), P3)
     out["B1 wide"] = b1_real_schedule(mats["mk12.b4"], "mk12.b4",
                                       EchelonizeOptions(), P4)
+    # B12 at mk12.b4's shapes at 2^32 - 5: the finisher's largest chunk
+    # (K = 1248, 4.7 % live slots over ~2310 rows of R) and a round-0
+    # Schur chunk (the rows of A, K = 8); the finisher's at 65521 on
+    # int16 R
+    out["B12"] = b12_line(rng, 4096, 1248, 14336, P4, 0.047, 2312,
+                          "the finisher's largest chunk")
+    b12_line(rng, 4096, 8, 20480, P4, 0.406, 8192, "a round-0 chunk")
+    b12_line(rng, 4096, 1248, 14336, 65521, 0.047, 2312,
+             "the finisher's largest chunk")
 
     def sweeps(name, kern, plain, M, empty, replaces, full=False):
         X = (b3_panel(rng, "full", M, P) if full else
@@ -888,11 +962,12 @@ def wide_phase(mats) -> dict:
     calls = dict(_cuda.calls)
     log(f"the wide tiers: launches {counts}; B1 wide over "
         f"{calls['B1 wide']} calls, {builds[0]} reduced-basis builds")
-    _launched(counts, ("B1 wide",), "the wide tiers")
+    _launched(counts, ("B1 wide", "B12"), "the wide tiers")
     if not counts["B1 wide"] == calls["B1 wide"] == builds[0]:
         sys.exit("chip_smoke: B1 wide did not launch exactly once per "
                  "reduced-basis build")
-    narrow = {k: v for k, v in counts.items() if v and k != "B1 wide"}
+    narrow = {k: v for k, v in counts.items()
+              if v and k not in ("B1 wide", "B12")}
     if narrow:
         sys.exit(f"chip_smoke: d = 2 kernels launched at p > 65535: "
                  f"{narrow}")
@@ -1713,7 +1788,8 @@ def main(argv) -> int:
     paths = (counts, counts4, counts5, counts6, counts7, counts8, counts9,
              counts10)
     for k, keys in (("B1", ["B1"]), ("B1 wide", ["B1 wide"]), ("B2", ["B2"]),
-                    ("B3", ["B3"]), ("B4", ["B4 rref", "B4 lu"])):
+                    ("B3", ["B3"]), ("B4", ["B4 rref", "B4 lu"]),
+                    ("B12", ["B12"])):
         kernels[k]["launches"] = sum(c[key] for c in paths for key in keys)
     log(f"chip_smoke: {time.time() - t0:.1f} s in all, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -14,7 +14,9 @@ int32-storage kernel, p > 65535), B2 and B3 the row
 sweeps (dense/rowrref.py; B2 counted again by variant, "B2 cluster" one
 launch per sweep, "B2 pair" two per Jordan step), B4 the panel steps of
 the column-sweep elimination (dense/panel.py), counted apart in RREF and
-LU mode and, again, by variant (cluster or cooperative).  `calls` counts
+LU mode and, again, by variant (cluster or cooperative), B12 the
+gather-combine that forms the rank finisher's blocks at d >= 3
+(dense/reduced.py, one per chunk of rows).  `calls` counts
 the wrapper calls that launched B1 or B1 wide (reduced-basis builds) and
 B2 (sweeps), so a run can show launches per call.  Nothing here runs at
 import.
@@ -31,7 +33,7 @@ from typing import Dict, Optional
 
 _HERE = pathlib.Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
-_SOURCES = ("subst.cu", "row_sweep.cu", "panel.cu")
+_SOURCES = ("subst.cu", "row_sweep.cu", "panel.cu", "combine.cu")
 _HEADERS = ("modp.cuh", "cluster.cuh", "device.cuh")
 BUILD_DIR = _HERE.parent / "build" / "spasm_tpu_torch"
 
@@ -39,7 +41,7 @@ launches: Dict[str, int] = {"B1": 0, "B1 wide": 0, "B2": 0,
                              "B2 cluster": 0,
                              "B2 pair": 0, "B3": 0, "B4 rref": 0,
                              "B4 lu": 0, "B4 cluster": 0,
-                             "B4 cooperative": 0}
+                             "B4 cooperative": 0, "B12": 0}
 calls: Dict[str, int] = {"B1": 0, "B1 wide": 0, "B2": 0}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -138,6 +140,10 @@ def lib() -> ctypes.CDLL:
     L.spasm_panel_cluster_rows.argtypes = []
     L.spasm_tile_width.restype = ci
     L.spasm_tile_width.argtypes = []
+    ll = ctypes.c_longlong
+    L.spasm_gather_combine.restype = ci
+    L.spasm_gather_combine.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ll,
+                                       ci, ll, ci, vp]
     _lib = L
     return L
 

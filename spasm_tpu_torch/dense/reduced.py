@@ -16,6 +16,10 @@ package's R bit for bit whichever route built it.
 Use (phase B): a block of rows (actual rows, or random sparse-weight
 combinations) given as flat entry slots forms as
     X = scatter(free entries) - sum_slots v_slot * R[ref_slot].
+Above the d == 2 tier a CUDA block takes the sum through kernel B12
+(`gather_combine`, csrc/combine.cu), one launch a chunk of rows that
+skips dead slots; the d == 2 tier and CPU tensors take `_ref_combine`'s
+slot loop.
 
 Not ported: the JAX package's XLA scan build (`_phase_a_scan`) and its
 log-depth tail (`_build_tail`, `_host_spmm_modp`), which exist to beat
@@ -38,11 +42,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _cuda
 from .elim import _size_bucket, _submod
 from .modp import (_reduce31, device_field, dnorm64, matmul_digits,
                    storage_dtype)
-from .subst import SUBST_COLS, nred_for, subst_waves
+from .subst import SUBST_COLS, nred_for, nred_wide, subst_waves
 from ..parallel import context as mesh_ctx
+from ..profiling import phase
 
 
 def _ref_combine(V: torch.Tensor, R: torch.Tensor, refs: torch.Tensor,
@@ -56,7 +62,8 @@ def _ref_combine(V: torch.Tensor, R: torch.Tensor, refs: torch.Tensor,
     small_acc (caller guarantees K * (p//2)^2 < 2^31) takes all K in one
     accumulation.  Above it they accumulate in int64: d == 3 sums up to
     2^15 products (< 2^47 each) between reductions, d == 4 reduces each
-    product (< 2^62) before the sum."""
+    product (< 2^62) before the sum; there it is the plain version of
+    kernel B12 (`gather_combine`), which CUDA blocks take."""
     S, K = V.shape
     d = device_field(p).ndigits
     if d > 2:
@@ -76,6 +83,47 @@ def _ref_combine(V: torch.Tensor, R: torch.Tensor, refs: torch.Tensor,
             part += V[:, k:k + 1] * R[refs[:, k]].to(torch.int32)
         out = _reduce31(out + part, p)
     return out
+
+
+def gather_combine(X: torch.Tensor, V: torch.Tensor, R: torch.Tensor,
+                   refs: torch.Tensor, p: int, dead: int,
+                   zero_last: bool) -> torch.Tensor:
+    """Kernel B12: X - sum_k V[:, k] * R[refs[:, k]] mod p, balanced,
+    written IN PLACE over X and returned; column w - 1 zeroed when
+    zero_last.
+
+    X (S, w) int32 balanced; V (S, K) int32 balanced; refs (S, K) int64
+    R row ids, slots with refs == dead (R's zero row) or V == 0 skipped;
+    R (rows, w) of `storage_dtype(p)`.  CUDA tensors only, contiguous,
+    on one card, w % 8 == 0.  One launch, counted as "B12"."""
+    S, w = X.shape
+    K = V.shape[1]
+    if not all(t.device.type == "cuda" and t.device == R.device
+               for t in (X, V, refs)):
+        raise ValueError("kernel B12 takes CUDA tensors on one card")
+    if (X.dtype != torch.int32 or V.dtype != torch.int32
+            or refs.dtype != torch.int64 or R.dtype != storage_dtype(p)):
+        raise ValueError(f"kernel B12 takes int32 X and V, int64 refs and "
+                         f"{storage_dtype(p)} R for p = {p}")
+    if (V.shape != refs.shape or V.shape[0] != S or R.dim() != 2
+            or R.shape[1] != w):
+        raise ValueError("kernel B12: inconsistent shapes")
+    if not all(t.is_contiguous() for t in (X, V, refs, R)) or w % 8 \
+            or X.data_ptr() % 16 or R.data_ptr() % 16:
+        raise ValueError("kernel B12 needs contiguous, 16-byte aligned "
+                         "tensors and w % 8 == 0")
+    if S == 0 or w == 0:
+        return X
+    L = _cuda.lib()
+    # <<<>>> launches on the current device: make it R's
+    with torch.cuda.device(R.device):
+        err = L.spasm_gather_combine(
+            X.data_ptr(), R.data_ptr(), int(R.dtype == torch.int16), w,
+            refs.data_ptr(), V.data_ptr(), S, K, dead, nred_wide(p), p,
+            int(zero_last), _cuda.stream_ptr(X))
+    _cuda.check(err, "kernel B12 (spasm_gather_combine)")
+    _cuda.launches["B12"] += 1
+    return X
 
 
 class ReducedBasis:
@@ -240,12 +288,16 @@ class ReducedBasis:
                            torch.where(mine, v, 0).to(X.dtype))
         Xb = _reduce31(X, p) if small else dnorm64(X, p).to(torch.int32)
         K = eidx.shape[1]
-        delta = _ref_combine(v, R, pr, p, self._small_acc(K))
-        out = _submod(Xb, delta, p)
         # reference slots scattered onto the dead column: keep it zero so
         # rowspan-dependent rows cannot claim a false pivot there
-        if base + w == self.M:
-            out[:, w - 1] = 0
+        last = base + w == self.M
+        with phase("ref_combine"):
+            if R.device.type == "cuda" and not small:
+                return gather_combine(Xb, v, R, pr, p, self.npad - 1, last)
+            delta = _ref_combine(v, R, pr, p, self._small_acc(K))
+            out = _submod(Xb, delta, p)
+            if last:
+                out[:, w - 1] = 0
         return out
 
     def _arrays_on_shards(self):

@@ -19,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_checks import (b2_panel, b3_panel, deficient_panel, panel_block,
-                         random_waves, scc_banded, upper_triangular)
+from chip_checks import (b2_panel, b3_panel, combine_inputs,
+                         deficient_panel, panel_block, random_waves,
+                         scc_banded, upper_triangular)
 from spasm_tpu_torch import (CSR, EchelonizeOptions, _cuda,
                              dulmage_mendelsohn, echelonize, gesv, kernel,
                              kernel_from_rref, rank_certificate_create,
@@ -28,9 +29,12 @@ from spasm_tpu_torch import (CSR, EchelonizeOptions, _cuda,
 from spasm_tpu_torch.checkpoint import matrix_fingerprint
 from spasm_tpu_torch.certificate import factorization_verify
 from spasm_tpu_torch.dense import modp_matmul
-from spasm_tpu_torch.dense.elim import dense_lu_device, dense_rref_device
-from spasm_tpu_torch.dense.modp import (matmul_digits, modp_matmul_np,
-                                        storage_dtype)
+from spasm_tpu_torch.dense.elim import (_submod, dense_lu_device,
+                                        dense_rref_device)
+from spasm_tpu_torch.dense.modp import (device_field, matmul_digits,
+                                        modp_matmul_np, storage_dtype)
+from spasm_tpu_torch.dense.reduced import (ReducedBasis, _ref_combine,
+                                           gather_combine)
 from spasm_tpu_torch.dense.panel import (CLUSTER_ROWS, _panel_plain,
                                          panel_pivots, panel_variant)
 from spasm_tpu_torch.dense.rowrref import (CLUSTER_COLS, TILE_W,
@@ -215,6 +219,79 @@ def test_d2_kernels_refuse_wide_primes(dev, p):
         panel_pivots(P[:, :64], torch.zeros(64, dtype=torch.bool,
                                             device=dev), p, 64, True)
     assert dict(_cuda.launches) == before
+
+
+# the d >= 3 primes of tests/test_torch_reduced.py (65521 on int16 R)
+WIDE = [65521, 65537, 16711421, 16711427, 67108859, 4294967291]
+# (S, K, w, live share, zero_last): K = 8 (round 0's Schur blocks) on a
+# full tile; K ~ 1,100 mostly dead (the finisher's rows at 2^32 - 5) on a
+# ragged tile; a column shard (base > 0, its last column kept); S not a
+# multiple of the kernel's 4 rows throughout
+B12_SHAPES = {"k8": (301, 8, 2048, 0.9, True),
+              "k1104": (301, 1104, 1088, 0.06, True),
+              "shard": (130, 40, 640, 0.3, False),
+              "k32808": (5, (1 << 15) + 40, 64, 0.5, True)}
+B12_CASES = [(p, c) for p in WIDE for c in ("k8", "k1104", "shard")] + [
+    (p, "k32808") for p in WIDE if device_field(p).ndigits == 3]
+
+
+@pytest.mark.parametrize("p,case", B12_CASES)
+def test_b12_matches_plain(dev, p, case):
+    """Kernel B12 against its plain version (the torch slot loop on the
+    CPU, then the balanced difference): bit-equal, one launch, with rows
+    of dead slots only and the largest coefficients on every slot
+    (chip_checks.combine_inputs)."""
+    S, K, w, live, last = B12_SHAPES[case]
+    X, V, R, refs = combine_inputs(np.random.default_rng([p, K, w]), S, K,
+                                   w, p, live)
+    Rt = torch.from_numpy(R).to(storage_dtype(p))
+    want = _submod(torch.from_numpy(X), _ref_combine(
+        torch.from_numpy(V), Rt, torch.from_numpy(refs), p), p)
+    if last:
+        want[:, -1] = 0
+    before = dict(_cuda.launches)
+    got = gather_combine(torch.from_numpy(X).to(dev),
+                         torch.from_numpy(V).to(dev), Rt.to(dev),
+                         torch.from_numpy(refs).to(dev), p, R.shape[0] - 1,
+                         last)
+    torch.cuda.synchronize()
+    assert _cuda.launches["B12"] - before["B12"] == 1
+    assert all(_cuda.launches[k] == before[k] for k in before if k != "B12")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("p", [65521, 4294967291])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_b12_form_block_card_matches_cpu(dev, p, weighted):
+    """ReducedBasis.form_block on the card (kernel B12, one launch a
+    chunk of rows) equals the same block formed on the CPU (the slot
+    loop), on mk10.b3's reduced basis: plain rows, and weighted
+    combinations of three rows as the low-rank mode draws them."""
+    from spasm_tpu_torch.echelonize import _Engine
+    B = matching_complex_boundary(10, 3)
+    A = CSR(B.n, B.m, Field(p), B.indptr, B.indices, B.data)
+    eng = _Engine(A, EchelonizeOptions(), "cpu")
+    eng.extract_structural(A)
+    qfree = np.nonzero(eng.U.qinv < 0)[0]
+    store = eng.U.flat_store()
+    bases = []
+    for d in ("cpu", dev):
+        rb = ReducedBasis(A.m, p, qfree, eng.U.n, d)
+        rb.build(*store)
+        rb.set_entries(A.indices, A.data, A.nnz)
+        bases.append(rb)
+    rng = np.random.default_rng([p, weighted])
+    rows = rng.integers(0, A.n, (1500, 3 if weighted else 1))
+    coeffs = (rng.integers(-(p // 2), p // 2 + 1, rows.shape)
+              if weighted else None)
+    eidx, coeff = bases[0].flat_rows(A.indptr, rows, coeffs)
+    rb = bases[1]
+    rb._GATHER_BUDGET = 512 * rb.M               # chunks of 512 rows
+    before = _cuda.launches["B12"]
+    got = rb.form_block(eidx, coeff, Bp=2048)
+    torch.cuda.synchronize()
+    assert _cuda.launches["B12"] - before == 4
+    assert torch.equal(got.cpu(), bases[0].form_block(eidx, coeff, Bp=2048))
 
 
 @pytest.mark.parametrize("case", ["rank40", "zero", "full", "boundary"])

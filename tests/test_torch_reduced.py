@@ -1,6 +1,7 @@
 """Kernel B1's plain version, its schedule and the port's ReducedBasis
 against the JAX package, on the same inputs (tolerance 0: R is
-unique)."""
+unique); the plain version of kernel B12 (the block forming's slot
+loop) against exact numpy sums."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,8 +14,12 @@ from spasm_tpu.echelonize import EchelonizeOptions as JOpts
 from spasm_tpu.echelonize import _Engine as JEngine
 from spasm_tpu.gen import matching_complex_boundary
 
-from spasm_tpu_torch.dense.modp import storage_dtype
-from spasm_tpu_torch.dense.reduced import ReducedBasis, subst_schedule
+from chip_checks import combine_inputs
+from spasm_tpu_torch import _cuda
+from spasm_tpu_torch.dense.elim import _submod
+from spasm_tpu_torch.dense.modp import device_field, storage_dtype
+from spasm_tpu_torch.dense.reduced import (ReducedBasis, _ref_combine,
+                                           gather_combine, subst_schedule)
 from spasm_tpu_torch.dense.subst import nred_for, nred_wide, subst_waves
 from spasm_tpu_torch.echelonize import EchelonizeOptions, _Engine
 from spasm_tpu_torch.interop import csr_from_numpy
@@ -225,3 +230,78 @@ def test_subst_schedule_matches_jax(src, p):
     jrb = JReducedBasis(A.m, p, qfree, je.U.n)
     jrb.build(*je.U.flat_store())
     assert np.array_equal(R.numpy(), np.asarray(jrb.R))
+
+
+def _combine_np(X, V, R, refs, p):
+    """Balanced X - sum_k V[:, k] R[refs[:, k]] mod p, exact in int64:
+    each product (< 2^62) reduced before the sum."""
+    s = ((V[:, :, None].astype(np.int64) * R[refs]) % p).sum(axis=1) % p
+    out = (X.astype(np.int64) - s) % p
+    return np.where(out > p // 2, out - p, out)
+
+
+@pytest.mark.parametrize("p,K", [(p, K) for p in WIDE for K in (8, 1104)]
+                         + [(p, (1 << 15) + 40) for p in WIDE
+                            if device_field(p).ndigits == 3])
+def test_ref_combine_plain_matches_exact_sums(p, K):
+    """The slot loop that CPU tensors take at d >= 3 (and kernel B12's
+    oracle on the card): mostly dead slots, a row of dead slots only,
+    the largest coefficients on every slot, and more than 2^15 slots
+    at d = 3, where the loop reduces every 2^15 products."""
+    S, w = (5, 64) if K > 1 << 15 else (37, 256)
+    X, V, R, refs = combine_inputs(np.random.default_rng([p, K]), S, K, w,
+                                   p)
+    got = _submod(torch.from_numpy(X), _ref_combine(
+        torch.from_numpy(V), torch.from_numpy(R).to(storage_dtype(p)),
+        torch.from_numpy(refs), p), p)
+    assert np.array_equal(got.numpy(), _combine_np(X, V, R, refs, p))
+
+
+@pytest.mark.parametrize("p", WIDE)
+def test_form_block_on_cpu_takes_the_plain_loop(p):
+    """A CPU basis forms its blocks through the slot loop at every
+    d >= 3 prime, one row per slot-sum against the exact numpy sum;
+    kernel B12 is never counted, and its wrapper refuses CPU tensors."""
+    rng = np.random.default_rng(p)
+    m, nq, npiv = 700, 300, 200
+    cols = rng.permutation(m)
+    qfree, pivcols = np.sort(cols[:nq]), cols[nq:nq + npiv]
+    rb = ReducedBasis(m, p, qfree, npiv, "cpu")
+    R = np.zeros((rb.npad, rb.M), np.int64)
+    R[:npiv, :nq] = rng.integers(-(p // 2), p // 2 + 1, (npiv, nq))
+    rb = ReducedBasis.from_numpy(R, qfree, pivcols, m, p, "cpu")
+    nnz = 3000
+    indices = rng.integers(0, m, nnz)
+    data = rng.integers(-(p // 2), p // 2 + 1, nnz)
+    rb.set_entries(indices, data, nnz)
+    eidx = rng.integers(0, nnz + 1, (50, 24))
+    coeff = rng.integers(-(p // 2), p // 2 + 1, (50, 24)).astype(np.int32)
+    before = _cuda.launches["B12"]
+    got = rb.form_block(eidx, coeff, Bp=64).numpy()
+    assert _cuda.launches["B12"] == before
+    assert not got[50:].any() and not got[:, -1].any()
+    # the block by definition: every slot's entry times its coefficient,
+    # a free column's to its compact column, a pivot column's through R
+    v = (data.astype(object)[np.minimum(eidx, nnz - 1)] * coeff) % p
+    v[eidx == nnz] = 0
+    c = indices[np.minimum(eidx, nnz - 1)]
+    want = np.zeros((50, rb.M), object)
+    slot = {int(q): i for i, q in enumerate(qfree)}
+    row = {int(q): i for i, q in enumerate(pivcols)}
+    for b in range(50):
+        for k in range(24):
+            if eidx[b, k] == nnz:
+                continue
+            if int(c[b, k]) in slot:
+                want[b, slot[int(c[b, k])]] += v[b, k]
+            elif int(c[b, k]) in row:
+                want[b] -= v[b, k] * R[row[int(c[b, k])]].astype(object)
+    want %= p
+    want = np.where(want > p // 2, want - p, want).astype(np.int64)
+    want[:, -1] = 0
+    assert np.array_equal(got[:50], want)
+    X = torch.zeros((4, rb.M), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gather_combine(X, torch.zeros((4, 8), dtype=torch.int32), rb.R,
+                       torch.zeros((4, 8), dtype=torch.int64), p,
+                       rb.npad - 1, True)

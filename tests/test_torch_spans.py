@@ -1,7 +1,8 @@
 """The engine's `spasm/...` profiler ranges (profiling.phase / annotate):
 where the factors are read, inside the rank finisher, around the digit
-matmul, around each round and each wide row sweep, with the benchmark's
-readers of the last two; and none at all when no profiler is active."""
+matmul, around each round, each wide row sweep and each block forming's
+combine, with the benchmark's readers of the last three; and none at
+all when no profiler is active."""
 import re
 
 import numpy as np
@@ -259,3 +260,44 @@ def test_phase_off_means_off(monkeypatch):
         with pytest.raises(AssertionError, match="without a profiler"):
             with profiling.phase("something"):
                 pass
+
+
+COMBINE_READERS = ("ref_combine.device_s", "ref_combine.launches")
+
+
+@pytest.mark.parametrize("p", [P, PW])
+def test_ref_combine_spans_sit_inside_form_block(p, request):
+    """Every chunk's combine runs in a `spasm/ref_combine` range: inside
+    the finisher's `form_block` at 42013 (low-rank mode) and at 2^32 - 5
+    (rows mode), where round 0 forms its Schur complement's blocks
+    inside `schur_sparse` too; on the CPU its readers read 0."""
+    if p == PW:
+        rec, spans = (request.getfixturevalue("wide_route")[k]
+                      for k in ("rec", "spans"))
+        parents = spans["spasm/form_block"] + spans["spasm/schur_sparse"]
+        assert any(_inside(c, spans["spasm/schur_sparse"])
+                   for c in spans["spasm/ref_combine"])
+    else:
+        rec, spans = _record(lambda: echelonize(
+            _tall_lowrank(), EchelonizeOptions(device_dense_min=0),
+            device="cpu"))
+        parents = spans["spasm/form_block"]
+    combines = spans["spasm/ref_combine"]
+    assert combines and all(_inside(c, parents) for c in combines)
+    assert any(_inside(c, spans["spasm/form_block"]) for c in combines)
+    got = {name: _read(name, rec) for name in COMBINE_READERS}
+    assert got == {name: 0.0 for name in COMBINE_READERS}
+
+
+def test_ref_combine_readers_none_without_the_range():
+    """A complete PLUQ through the dense finisher forms no block: no
+    `spasm/ref_combine` range, and its readers return None there and on
+    an empty record."""
+    rec, spans = _record(lambda: echelonize(
+        _dense_square(), EchelonizeOptions(complete=True), device="cpu"))
+    assert "spasm/ref_combine" not in spans and "spasm/finish_dense" in spans
+    empty = tracing.record_of([])
+    empty["ncalls"] = 0
+    for name in COMBINE_READERS:
+        assert _read(name, rec) is None, name
+        assert _read(name, empty) is None, name
