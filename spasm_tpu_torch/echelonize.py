@@ -247,12 +247,16 @@ class _UBuilder:
     """Incremental U accumulator: rows with unitary pivots first.
 
     Rows live in segments (offs, cols, vals, pivcols, levels) of flat
-    arrays; rows may also arrive as device-resident dense blocks,
-    copied to the host lazily (the rank path never copies them).
-    Segment levels are topological levels: equal-level rows never
-    contain each other's pivot columns; a segment without levels is
-    mutually independent.  A row only references pivot columns of later
-    rows.
+    arrays; rows may also arrive as device-resident dense blocks, which
+    stay where they are until a read (the rank path never reads them):
+    flush_device sparsifies them with torch on their own device and
+    copies their CSR to the host once.  Segment levels are topological
+    levels: equal-level rows never contain each other's pivot columns;
+    a segment without levels is mutually independent.  A row only
+    references pivot columns of later rows.  `record` says, after each
+    flush and read, where the device blocks were sparsified, how many
+    entries came from them and from host segments, and how many rows'
+    levels the read computed (flat_store's callers only).
     """
 
     def __init__(self, m: int, prime: int):
@@ -264,6 +268,9 @@ class _UBuilder:
         # deferred device blocks: (Rd, colmap, pivcols_global, base_row)
         self._pending: List[tuple] = []
         self._n = 0
+        self._dev = "cpu"              # where the last device block was
+        self._dev_entries = 0          # entries of the flushed blocks
+        self.record: Optional[dict] = None
 
     @property
     def n(self) -> int:
@@ -308,67 +315,143 @@ class _UBuilder:
         self._n += len(pivcols)
 
     def flush_device(self):
-        """Materialize pending device blocks into host sparse segments."""
+        """Materialize pending device blocks into host sparse segments:
+        their nonzeros, each row's pivot first, found with torch where
+        the blocks are; one copy of the CSR to the host."""
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        for Rd, colmap, pivcols, _ in pending:
-            with phase("u_copy"):
-                R = Rd.cpu().numpy()                # the one D2H copy
-            with phase("u_sparsify"):
-                K = R.shape[0]
-                nz_r, nz_c = np.nonzero(R)
-                # pivot-first: each row's own pivot column sorts first
-                order_cm = np.argsort(colmap, kind="stable")
-                ppos = order_cm[np.searchsorted(colmap, pivcols,
-                                                sorter=order_cm)]
-                first = nz_c == ppos[nz_r]
-                order = np.lexsort((~first, nz_r))
-                nz_r, nz_c = nz_r[order], nz_c[order]
-                counts = np.bincount(nz_r, minlength=K)
-                offs = np.concatenate(([0], np.cumsum(counts)))
-                self._segs.append((offs.astype(np.int64),
-                                   colmap[nz_c].astype(np.int32),
-                                   R[nz_r, nz_c].astype(np.int32),
-                                   pivcols, None))
+        with phase("u_sparsify"):
+            parts = [part for Rd, colmap, pivcols, _ in pending
+                     for part in _pivot_first_csr(Rd, colmap, pivcols)]
+            counts, cols, vals = (torch.cat(x) for x in zip(*parts))
+            del parts
+            nnz = int(counts.sum())        # waits for the device's work
+        with phase("u_copy"):
+            counts, cols, vals = (t.cpu().numpy()
+                                  for t in (counts, cols, vals))
+            vals = vals.astype(np.int32, copy=False)
+            k0 = e0 = 0
+            for Rd, _, pivcols, _ in pending:
+                k1 = k0 + Rd.shape[0]
+                offs = np.zeros(k1 - k0 + 1, np.int64)
+                np.cumsum(counts[k0:k1], out=offs[1:])
+                e1 = e0 + int(offs[-1])
+                self._segs.append((offs, cols[e0:e1], vals[e0:e1], pivcols,
+                                   None))
+                k0, e0 = k1, e1
+        self._dev = str(pending[-1][0].device)
+        self._dev_entries += nnz
+        self._note(0)
 
-    def flat_store(self):
-        """All rows as one flat store for the reduced-basis build.
-        Returns (offs, cols, vals, pivcols, groups): equal-group rows are
-        mutually independent and rows only reference greater groups."""
+    def _note(self, level_rows: int):
+        nnz = sum(int(s[0][-1]) for s in self._segs)
+        self.record = {"device": self._dev,
+                       "device_entries": self._dev_entries,
+                       "host_entries": nnz - self._dev_entries,
+                       "level_rows": level_rows}
+
+    def _flat(self, groups: bool):
+        """All rows as flat arrays (offs, cols, vals, pivcols, groups);
+        groups (the segments' levels, offset per segment) only when
+        asked for, else None."""
         self.flush_device()
         if not self._segs:
+            self._note(0)
             z = np.zeros(1, np.int64)
             return (z, np.empty(0, np.int32), np.empty(0, np.int32),
-                    np.empty(0, np.int64), np.empty(0, np.int64))
+                    np.empty(0, np.int64),
+                    np.empty(0, np.int64) if groups else None)
         offs_all = [np.zeros(1, np.int64)]
         cols_all, vals_all, piv_all, grp_all = [], [], [], []
         base = 0
         gid = 0
+        level_rows = 0
         for offs, cols, vals, pivcols, levels in self._segs:
             offs_all.append(offs[1:] + base)
             base += offs[-1]
             cols_all.append(cols[:offs[-1]])
             vals_all.append(vals[:offs[-1]])
             piv_all.append(pivcols)
+            if not groups:
+                continue
             if levels is None:
+                level_rows += len(pivcols)
                 with phase("u_levels"):
                     levels = _intra_levels(offs, cols, pivcols)
             grp_all.append(gid + levels)
             gid += int(levels.max(initial=0)) + 1
+        self._note(level_rows)
+        log.info("[echelonize] U read: %d entries from device blocks "
+                 "(sparsified on %s), %d from host segments; levels of %d "
+                 "rows", self.record["device_entries"], self._dev,
+                 self.record["host_entries"], level_rows)
         with phase("u_concat"):
             return (np.concatenate(offs_all), np.concatenate(cols_all),
                     np.concatenate(vals_all), np.concatenate(piv_all),
-                    np.concatenate(grp_all))
+                    np.concatenate(grp_all) if groups else None)
+
+    def flat_store(self):
+        """All rows as one flat store for the reduced-basis build.
+        Returns (offs, cols, vals, pivcols, groups): equal-group rows are
+        mutually independent and rows only reference greater groups."""
+        return self._flat(True)
 
     def snapshot_csr(self) -> CSR:
-        offs, cols, vals, _, _ = self.flat_store()
+        """U as a host CSR, rows in order; no levels computed."""
+        offs, cols, vals, _, _ = self._flat(False)
         return CSR(self._n, self.m, self.field, offs, cols, vals)
 
     def nnz(self) -> int:
         if self._pending:
             return -1          # unknown without forcing a copy
         return int(sum(int(s[0][-1]) for s in self._segs))
+
+
+# flush_device sparsifies a device block in row chunks of at most this
+# many elements: torch.nonzero and the index passes over its output take
+# about 50 bytes a nonzero on the block's device
+_U_CHUNK_ELEMS = 1 << 25
+
+
+def _pivot_first_csr(Rd: torch.Tensor, colmap: np.ndarray,
+                     pivcols: np.ndarray) -> list:
+    """The nonzeros of the dense block Rd (K, w) of U rows as CSR parts
+    on Rd's device, one (counts, cols, vals) a chunk of rows: counts
+    int64 per row, cols int32 global columns (colmap[c]), vals in Rd's
+    dtype (int32 if wider).  A row's entries keep their local-column
+    order, except its pivot entry (local column of pivcols[k]), which
+    moves to the front: the order np.lexsort((~first, row)) gives
+    np.nonzero's entries."""
+    dev = Rd.device
+    K, w = Rd.shape
+    order = np.argsort(colmap, kind="stable")
+    ppos = torch.as_tensor(order[np.searchsorted(colmap, pivcols,
+                                                 sorter=order)], device=dev)
+    cmap = torch.as_tensor(colmap.astype(np.int32), device=dev)
+    vdtype = Rd.dtype if Rd.element_size() <= 4 else torch.int32
+    parts = []
+    h = max(1, _U_CHUNK_ELEMS // max(w, 1))
+    for r0 in range(0, max(K, 1), h):      # one chunk of an empty block
+        X = Rd[r0:r0 + h]
+        r, c = torch.nonzero(X).unbind(1)
+        cnt = torch.bincount(r, minlength=X.shape[0])
+        pr = ppos[r0:r0 + h][r]
+        piv = c == pr
+        rp = r[piv]
+        has = torch.zeros(X.shape[0], dtype=torch.bool, device=dev)
+        has[rp] = True
+        # entries left of their row's pivot move one slot right, the
+        # pivot to its row's first slot (a shift, not a swap)
+        dest = torch.arange(r.numel(), device=dev)
+        dest += (c < pr) & has[r]
+        dest[piv] = (torch.cumsum(cnt, 0) - cnt)[rp]
+        cc = torch.empty(r.numel(), dtype=torch.int32, device=dev)
+        cc[dest] = cmap[c]
+        vv = torch.empty(r.numel(), dtype=vdtype, device=dev)
+        vv[dest] = X[r, c].to(vdtype)
+        parts.append((cnt, cc, vv))
+    return parts
 
 
 def _intra_levels(offs: np.ndarray, cols: np.ndarray,

@@ -15,8 +15,10 @@ from spasm_tpu_torch import (CSR, EchelonizeOptions, Field, echelonize,
 from spasm_tpu_torch.gen import matching_complex_boundary
 
 P = 42013
+# U's read computes no levels: `u_levels` runs only where flat_store's
+# groups are built for the reduced basis
 FACTORS = {"spasm/factors_u": ("spasm/u_copy", "spasm/u_sparsify",
-                               "spasm/u_levels", "spasm/u_concat"),
+                               "spasm/u_concat"),
            "spasm/factors_l": ("spasm/l_copy", "spasm/l_sparsify",
                                "spasm/l_csr")}
 RANK_FINISHER = ("spasm/flat_store", "spasm/reduced_basis",
@@ -92,11 +94,47 @@ def test_factors_spans_nest_in_the_read(caplog):
         for child in children:
             assert any(_inside(c, spans[parent])
                        for c in spans.get(child, [])), (child, parent)
+    assert not any(_inside(c, spans["spasm/factors_u"])
+                   for c in spans.get("spasm/u_levels", []))
+    # U's: the last read, with the device LU's rows
+    m = re.findall(r"U read: (\d+) entries from device blocks \(sparsified "
+                   r"on cpu\), (\d+) from host segments; levels of 0 rows",
+                   caplog.text)
+    assert m and int(m[-1][0]) > 0 and int(m[-1][1]) > 0
     # the copies happen only in the reads
     for child in ("spasm/u_copy", "spasm/l_copy", "spasm/l_csr"):
         assert all(_inside(c, spans["spasm/factors_u"]
                            + spans["spasm/factors_l"])
                    for c in spans[child]), child
+
+
+def test_u_levels_run_where_groups_are_built(tmp_path, monkeypatch):
+    """A call resumed from its checkpoint holds U's earlier rows as one
+    segment without levels: the rank finisher's flat_store computes them
+    for the reduced basis, inside its `flat_store` range, and the read
+    of U after it computes none."""
+    from spasm_tpu_torch import checkpoint as ckpt
+    A = _tall_lowrank()
+    opts = EchelonizeOptions(device_dense_min=0,
+                             checkpoint_file=str(tmp_path / "ck.npz"))
+    real = ckpt.save_checkpoint
+
+    def save_then_stop(path, **kw):
+        real(path, **kw)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(ckpt, "save_checkpoint", save_then_stop)
+    with pytest.raises(KeyboardInterrupt):
+        echelonize(A, opts, device="cpu")
+    monkeypatch.setattr(ckpt, "save_checkpoint", real)
+    spans = _spans(lambda: echelonize(A, opts, device="cpu").U)
+    levels = spans["spasm/u_levels"]
+    assert levels and all(_inside(c, spans["spasm/flat_store"])
+                          for c in levels)
+    assert all(_inside(c, spans["spasm/finish_device"])
+               for c in spans["spasm/flat_store"])
+    assert len(spans["spasm/factors_u"]) == 1
+    assert not any(_inside(c, spans["spasm/factors_u"]) for c in levels)
 
 
 def test_factors_read_is_the_device_lu_route():
