@@ -196,6 +196,7 @@ def _unit_upper_inverse_small(V: torch.Tensor, p: int) -> torch.Tensor:
     return Vinv
 
 
+@annotate("panel_steps")
 def panel_steps(P0: torch.Tensor, is_piv: torch.Tensor, p: int, nb: int,
                 rref: bool):
     """One panel's pivots and pivot-minor factors in torch ops: the JAX
@@ -204,7 +205,7 @@ def panel_steps(P0: torch.Tensor, is_piv: torch.Tensor, p: int, nb: int,
     with the outputs of kernel B4 (dense/panel.py, which takes it as its
     plain version): (lrows, lhas, is_piv', Z) in RREF mode, (lrows,
     lhas, is_piv', Z, Vinv) in LU mode.  Above the d == 2 tier this is
-    the route on every device."""
+    the route on every device, one `spasm/panel_steps` range a panel."""
     piv = _discovery_sweep(P0, is_piv, p)
     lsafe = torch.where(piv.lhas, piv.lrows, 0).to(torch.int64)
     both = piv.lhas[:, None] & piv.lhas[None, :]

@@ -51,10 +51,13 @@ def _tall_lowrank():
 
 def _span_map(events):
     """{name: [(thread, start_ns, end_ns)]} of the spasm/ ranges among
-    raw profiler events."""
+    raw profiler events (the host's: a profile of the card's activity
+    also holds each range's mirror on the device's timeline)."""
+    from torch.autograd import DeviceType
     out = {}
     for e in events:
-        if e.name().startswith("spasm/"):
+        if (e.name().startswith("spasm/")
+                and e.device_type() != DeviceType.CUDA):
             s = e.start_ns()
             out.setdefault(e.name(), []).append(
                 (e.start_thread_id(), s, s + e.duration_ns()))
@@ -192,11 +195,13 @@ def _read(name, rec):
                                / f"{name}.py").read(rec)
 
 
-def _record(fn):
+def _record(fn, card=False):
     """The benchmark's traced record (benchmark/tracing.py) of one call
-    of fn() under a CPU profiler, and its spasm/ spans as _spans gives
-    them."""
+    of fn() under a CPU profiler (with `card`, the card's activity too),
+    and its spasm/ spans as _spans gives them."""
     acts = [torch.profiler.ProfilerActivity.CPU]
+    if card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function("bench/call"):
             fn()
@@ -339,3 +344,84 @@ def test_ref_combine_readers_none_without_the_range():
     for name in COMBINE_READERS:
         assert _read(name, rec) is None, name
         assert _read(name, empty) is None, name
+
+
+# the cell trefethen20kb.pluq.p4294967291: the d >= 3 dense LU's panels
+PANEL_READERS = ("panel_steps.device_s", "panel_steps.launches")
+
+
+def _panels_counted(monkeypatch):
+    """Counts the panel steps of every `_eliminate` (elim._panel_step)."""
+    from spasm_tpu_torch.dense import elim
+    seen = []
+    real = elim._panel_step
+
+    def count(*a, **kw):
+        seen.append(a[1])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(elim, "_panel_step", count)
+    return seen
+
+
+def _wide_square():
+    """_dense_square's matrix at 2^32 - 5: its dense LU (271 x 271,
+    padded to 512 columns) takes panel_steps, the d >= 3 route."""
+    A = _dense_square()
+    return CSR(A.n, A.m, Field(PW), A.indptr, A.indices, A.data)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is "
+                    "False")
+
+
+@pytest.mark.parametrize("device", ["cpu",
+                                    pytest.param("cuda",
+                                                 marks=pytest.mark.cuda)])
+def test_panel_steps_spans_sit_inside_finish_dense(device, monkeypatch):
+    if device == "cuda":
+        _card()
+    panels = _panels_counted(monkeypatch)
+    rec, spans = _record(lambda: echelonize(
+        _wide_square(), EchelonizeOptions(complete=True), device=device),
+        card=device == "cuda")
+    steps = spans["spasm/panel_steps"]
+    # one range a panel, each inside the dense LU inside the finisher
+    assert len(panels) == len(steps) == 8
+    assert all(_inside(c, spans["spasm/dense_lu"]) for c in steps)
+    assert all(_inside(c, spans["spasm/finish_dense"]) for c in steps)
+    got = {name: _read(name, rec) for name in PANEL_READERS}
+    if device == "cpu":      # nothing launched, no device time
+        assert got == {name: 0.0 for name in PANEL_READERS}
+    else:
+        assert all(v > 0 for v in got.values()), got
+
+
+def test_panel_readers_none_without_the_range():
+    """The rank finisher in low-rank mode runs no dense LU; an empty
+    record holds no range."""
+    rec, spans = _record(lambda: echelonize(
+        _tall_lowrank(), EchelonizeOptions(device_dense_min=0),
+        device="cpu"))
+    assert "spasm/panel_steps" not in spans
+    empty = tracing.record_of([])
+    empty["ncalls"] = 0
+    for name in PANEL_READERS:
+        assert _read(name, rec) is None, name
+        assert _read(name, empty) is None, name
+
+
+@pytest.mark.cuda
+def test_no_panel_steps_at_42013_on_the_card(monkeypatch):
+    """On the card the d = 2 tier's panels are kernel B4's: a complete
+    PLUQ at 42013 enters no `spasm/panel_steps` range."""
+    _card()
+    panels = _panels_counted(monkeypatch)
+    rec, spans = _record(lambda: echelonize(
+        _dense_square(), EchelonizeOptions(complete=True), device="cuda"))
+    assert len(panels) == 8 and spans["spasm/dense_lu"]
+    assert "spasm/panel_steps" not in spans
+    for name in PANEL_READERS:
+        assert _read(name, rec) is None, name
